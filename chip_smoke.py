@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``inductive_recommendation_tpu_torch``) on one
+CUDA card: the IGCN serving path at full width, through its CUDA kernel.
+
+    python3 chip_smoke.py          # from the repo root, on a machine with a card
+
+Phases, each of which raises on failure (the exit code is then not 0):
+
+1. card: requires ``torch.cuda.is_available()``; prints the card's name and
+   power limit as nvidia-smi gives them;
+2. build: compiles every CUDA source of the port (``ops/csrc/*.cu``);
+3. kernel: the SpMM kernel against its plain PyTorch version on the card, on
+   small edge cases and on the Gowalla-scale adjacency and IGCN feature matrix,
+   with its time, the plain version's, ``torch.sparse.mm``'s, the byte bound
+   and the time of the matrix's heaviest row alone;
+4. slice: IGCN (d=64, 3 layers, feature_ratio 1) over a Gowalla-scale synthetic
+   set (29,858 users x 40,981 items, seed 0): ``evaluate``, ``recommend``, one
+   ``feat_mat_anneal`` and ``evaluate`` again, checked against the plain SpMM
+   and against the host metric oracle;
+5. inductive: ``attach_dataset`` onto the set grown by 1,000 new users and
+   1,000 new items, then ``inductive_eval`` over its six slices;
+6. times: ``get_rep`` and ``evaluate``, and one ``evaluate`` under
+   ``torch.profiler`` (device time by kernel, device busy share).
+
+The counts of kernel launches are set to 0 just before phases 4-5 drive the
+serving path and read just after. The last lines are one JSON object of
+kernel numbers and then ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from inductive_recommendation_tpu_torch import get_model
+from inductive_recommendation_tpu_torch.data import BasicDataset, quick_synthetic_dataset
+from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
+from inductive_recommendation_tpu_torch.models import params_from_jax
+from inductive_recommendation_tpu_torch.ops import (
+    CsrSpMM,
+    _build,
+    build_csr_spmm,
+    spmm_csr_cuda,
+    spmm_csr_reference,
+)
+
+SEED = 0
+N_USERS, N_ITEMS, N_INTER = 29858, 40981, 1_200_000  # Gowalla-scale synthetic set
+IGCN_CONFIG = {"name": "IGCN", "embedding_size": 64, "n_layers": 3, "dropout": 0.3, "feature_ratio": 1}
+TOPKS = [20]
+TEST_BATCH = 512
+N_NEW = 1000
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s, fp32
+# flop/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+REL_TOL = 1e-5
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def nvidia_smi_name_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps=25, warmup=3) -> float:
+    """Median over ``reps`` single calls, each timed with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps) -> list[float]:
+    """Host-clock times of ``reps`` calls, each ending in a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def device_breakdown(fn, top=8):
+    """One call of ``fn`` under ``torch.profiler``: (host ms, device busy ms,
+    [(kernel name, ms, launches)] by device time). Busy is the union of the
+    device's kernel and copy intervals. None when the profiler saw no device
+    activity: the breakdown is then not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        return None
+    by_name, busy, run_start, run_end = {}, 0.0, spans[0][0], spans[0][1]
+    for start, end, name in spans:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + (end - start) / 1e3, n + 1)
+        if start > run_end:
+            busy += run_end - run_start
+            run_start = start
+        run_end = max(run_end, end)
+    busy = (busy + run_end - run_start) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return host, busy, [(name, ms, n) for name, (ms, n) in ranked]
+
+
+def close(out, ref, what) -> float:
+    """max |out - ref|; raises unless it is <= REL_TOL * max(1, max |ref|)."""
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
+    scale = max(1.0, ref.abs().max().item() if ref.numel() else 0.0)
+    if not err <= REL_TOL * scale:
+        raise AssertionError(f"{what}: max abs err {err} > {REL_TOL} * {scale}")
+    return err
+
+
+def spmm_bound_ms(mat, d) -> tuple[float, str]:
+    """Least time for one product: CSR (row_ptr, col, val), x and out moved
+    once, against 2 * nnz * d fp32 flops."""
+    n_bytes = 4 * (mat.n_rows + 1) + 8 * mat.nnz + 4 * d * (mat.n_cols + mat.n_rows)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2.0 * mat.nnz * d / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernel_edge_cases(rng) -> float:
+    """Empty rows, one row, rows not a multiple of the block, several widths."""
+    worst = 0.0
+    cases = []
+    n_rows, n_cols, nnz = 1003, 517, 6000
+    row = rng.integers(0, n_rows // 2, nnz) * 2  # odd rows stay empty
+    cases.append(("empty rows", row, rng.integers(0, n_cols, nnz), (n_rows, n_cols)))
+    cases.append(("one row", np.zeros(37, np.int64), rng.integers(0, 9, 37), (1, 9)))
+    cases.append(("no edges", np.zeros(0, np.int64), np.zeros(0, np.int64), (13, 5)))
+    for name, row, col, shape in cases:
+        mat = build_csr_spmm(row, col, rng.standard_normal(len(row)) + 0.1, shape, device="cuda")
+        for d in (16, 48, 64, 100, 200):
+            x = torch.as_tensor(rng.standard_normal((shape[1], d)), dtype=torch.float32, device="cuda")
+            out = spmm_csr_cuda(mat, x)
+            torch.cuda.synchronize()
+            ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
+            worst = max(worst, close(out, ref, f"{name} d={d}"))
+    log(f"kernel edge cases: ok, max abs err {worst:.3g}")
+    return worst
+
+
+def measure_spmm(name, mat, x) -> dict:
+    """The kernel against the plain version on ``mat`` @ ``x``, and the times."""
+    out = spmm_csr_cuda(mat, x)
+    torch.cuda.synchronize()
+    ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
+    err = close(out, ref, name)
+    lib_mat = torch.sparse_csr_tensor(mat.row_ptr, mat.col, mat.val, size=mat.shape)
+    lib_err = (torch.sparse.mm(lib_mat, x) - ref).abs().max().item()
+    row = {
+        "matrix": name,
+        "shape": list(mat.shape),
+        "nnz": mat.nnz,
+        "d": int(x.shape[1]),
+        "max_abs_err": err,
+        "ms": median_ms(lambda: spmm_csr_cuda(mat, x)),
+        "plain_ms": median_ms(lambda: spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)),
+        "library_ms": median_ms(lambda: torch.sparse.mm(lib_mat, x)),
+    }
+    row["bound_ms"], row["bound_by"] = spmm_bound_ms(mat, int(x.shape[1]))
+    # the heaviest row alone: one warp walks it, so it floors the whole launch
+    degrees = torch.diff(mat.row_ptr)
+    r = int(torch.argmax(degrees).item())
+    s, e = (int(v) for v in mat.row_ptr[r : r + 2].tolist())
+    heavy = CsrSpMM(
+        row_ptr=torch.tensor([0, e - s], dtype=torch.int32, device=x.device),
+        col=mat.col[s:e], val=mat.val[s:e], eid=mat.eid[s:e], n_rows=1, n_cols=mat.n_cols,
+    )
+    row["max_degree"] = e - s
+    row["heaviest_row_ms"] = median_ms(lambda: spmm_csr_cuda(heavy, x))
+    log(
+        f"spmm {name}: shape {mat.shape} nnz {mat.nnz} max row degree {e - s} d {x.shape[1]}: "
+        f"max abs err {err:.3g} (torch.sparse.mm {lib_err:.3g}); kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the heaviest row alone "
+        f"{row['heaviest_row_ms']:.4f} ms"
+    )
+    return row
+
+
+def plain_rep(model, params):
+    """IGCN get_rep through the plain SpMM, on the same device."""
+    emb = params["embedding"][: model.feat_n_cols]
+    x = spmm_csr_reference(model.feat.row_ptr, model.feat.col, model.feat.val, emb)
+    acc = x
+    for _ in range(model.n_layers):
+        x = spmm_csr_reference(model.norm_adj.row_ptr, model.norm_adj.col, model.norm_adj.val, x)
+        acc = acc + x
+    return acc / float(model.n_layers + 1)
+
+
+def check_metrics(metrics, what):
+    for name, by_k in metrics.items():
+        for k, v in by_k.items():
+            if not (np.isfinite(v) and 0.0 <= v <= 1.0):
+                raise AssertionError(f"{what}: {name}@{k} = {v}")
+
+
+def check_recommend(ds, rec):
+    if rec.shape != (ds.n_users, min(max(TOPKS), ds.n_items)):
+        raise AssertionError(f"recommend shape {rec.shape}")
+    if rec.min() < 0 or rec.max() >= ds.n_items:
+        raise AssertionError("recommend returned an id outside the catalog")
+    seen = np.concatenate(
+        [np.asarray(t, np.int64) + u * ds.n_items for u, t in enumerate(ds.train_data)]
+        + [np.asarray(v, np.int64) + u * ds.n_items for u, v in enumerate(ds.val_data)]
+    )
+    rec_keys = rec.astype(np.int64) + np.arange(ds.n_users, dtype=np.int64)[:, None] * ds.n_items
+    if np.isin(rec_keys.ravel(), seen).any():
+        raise AssertionError("recommend returned a train/val item for the test stage")
+
+
+def grown_dataset(ds, rng):
+    """``ds`` plus N_NEW users and N_NEW items: each new user takes 40 distinct
+    items of the grown catalog, each new item 20 distinct old users; every new
+    user's list is split 80/10/10 and every old user's new pair goes to train
+    with probability 0.8, else to test."""
+    n_users, n_items = ds.n_users + N_NEW, ds.n_items + N_NEW
+    grown = BasicDataset({"name": "GrownSynthetic", "split_ratio": [0.8, 0.1, 0.1]})
+    grown.n_users, grown.n_items = n_users, n_items
+    grown.train_data = [list(t) for t in ds.train_data]
+    grown.val_data = [list(v) for v in ds.val_data]
+    grown.test_data = [list(t) for t in ds.test_data]
+    for _ in range(N_NEW):
+        items = rng.choice(n_items, size=40, replace=False).tolist()
+        grown.train_data.append(items[:32])
+        grown.val_data.append(items[32:36])
+        grown.test_data.append(items[36:])
+    for item in range(ds.n_items, n_items):
+        for u in rng.choice(ds.n_users, size=20, replace=False).tolist():
+            (grown.train_data if rng.random() < 0.8 else grown.test_data)[u].append(item)
+    grown.train_array = np.array(
+        [(u, i) for u, t in enumerate(grown.train_data) for i in t], dtype=np.int64
+    )
+    return grown
+
+
+def main():
+    # 1. card
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is false")
+    card = nvidia_smi_name_power()
+    log(card)
+    log(
+        f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}; "
+        f"fp32 matmul allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    )
+    rng = np.random.default_rng(SEED)
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(logs) or 'nothing (cached)'}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # the Gowalla-scale set and the model: graph layouts and random weights
+    t0 = time.perf_counter()
+    ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=SEED)
+    model = get_model(IGCN_CONFIG, ds)
+    d = IGCN_CONFIG["embedding_size"]
+    params = params_from_jax(
+        model,
+        {
+            "embedding": rng.normal(0.0, 0.1, (model.feat_n_cols, d)).astype(np.float32),
+            "w": np.ones(d, np.float32),
+        },
+    )
+    log(
+        f"set-up: {time.perf_counter() - t0:.2f} s; {len(ds.train_array)} train pairs; "
+        f"adjacency {model.norm_adj.shape} nnz {model.norm_adj.nnz}; "
+        f"feature matrix {model.feat.shape} nnz {model.feat.nnz}"
+    )
+
+    # 3. kernel against its plain version, at the shapes the serving path gives it
+    max_err = check_kernel_edge_cases(rng)
+    with torch.no_grad():
+        emb = params["embedding"][: model.feat_n_cols]
+        feat_row = measure_spmm("feat", model.feat, emb)
+        adj_row = measure_spmm("adj", model.norm_adj, spmm_csr_cuda(model.feat, emb))
+    max_err = max(max_err, feat_row["max_abs_err"], adj_row["max_abs_err"])
+
+    # 4. the slice: get_rep against the plain SpMM chain, and its times
+    rep = model.make_scoring_state(params)
+    with torch.no_grad():
+        rep_err = close(rep, plain_rep(model, params), "get_rep vs the plain SpMM chain")
+    if rep.shape != (ds.n_users + ds.n_items, d) or not torch.isfinite(rep).all():
+        raise AssertionError(f"get_rep: shape {tuple(rep.shape)} or non-finite values")
+    log(f"get_rep vs the plain SpMM chain: max abs err {rep_err:.3g}")
+    get_rep_ms = median_ms(lambda: model.make_scoring_state(params), reps=20)
+    ev = Evaluator(ds, topks=TOPKS, test_batch_size=TEST_BATCH)
+
+    spmm_csr_cuda.launches = 0  # the serving path starts here
+    per_call = []
+
+    def counted(fn):
+        before = spmm_csr_cuda.launches
+        out = fn()
+        per_call.append(spmm_csr_cuda.launches - before)
+        return out
+
+    eval_first_ms = host_ms(lambda: counted(lambda: ev.evaluate(model, params, "test")), 1)[0]
+    results, metrics = counted(lambda: ev.evaluate(model, params, "test"))
+    check_metrics(metrics, "evaluate")
+    log(f"evaluate test: {results}")
+    rec = counted(lambda: ev.recommend(model, params, "test"))
+    check_recommend(ds, rec)
+    log(f"recommend test: shape {rec.shape}; users 0-2: {rec[:3, :10].tolist()}")
+    oracle = calculate_metrics(ds.test_data, rec, TOPKS)
+    for name in ("Precision", "Recall", "NDCG"):
+        if abs(oracle[name][20] - metrics[name][20]) > 1e-6:
+            raise AssertionError(f"{name}@20: device {metrics[name][20]} vs host oracle {oracle[name][20]}")
+    model.feat_mat_anneal()
+    results_annealed, metrics_annealed = counted(lambda: ev.evaluate(model, params, "test"))
+    check_metrics(metrics_annealed, "evaluate after anneal")
+    log(f"evaluate test after one anneal (alpha {model.alpha}): {results_annealed}")
+
+    # 5. inductive: new users and items get representations without retraining
+    n_old_users, n_old_items = ds.n_users, ds.n_items
+    grown = grown_dataset(ds, rng)
+    model.attach_dataset(grown)
+    ev_grown = Evaluator(grown, topks=TOPKS, test_batch_size=TEST_BATCH)
+    slices = ev_grown.inductive_eval(model, params, n_old_users, n_old_items, verbose=False)
+    launches = spmm_csr_cuda.launches  # the serving path ends here
+    n_get_rep = len(per_call) + len(slices)
+    for tag, m in slices.items():
+        check_metrics(m, tag)
+        log(f"inductive NDCG@20 {tag}: {m['NDCG'][20]:.6f}")
+    if per_call != [4] * len(per_call) or launches != 4 * n_get_rep:
+        raise AssertionError(f"spmm_csr launches: {per_call} per call, {launches} for {n_get_rep} get_rep")
+    log(f"spmm_csr launches on the serving path: {launches} over {n_get_rep} get_rep (4 each)")
+
+    # 6. times, after the counted run: the model now serves the grown set
+    eval_ms = host_ms(lambda: ev_grown.evaluate(model, params, "test"), 3)
+    log(
+        f"times on {card}: get_rep {get_rep_ms:.3f} ms (median of 20, {ds.n_users} users x {ds.n_items} items); "
+        f"evaluate test {eval_first_ms:.1f} ms (first call, same set); evaluate test on the grown set "
+        f"({grown.n_users} x {grown.n_items}), warm: {[round(t, 1) for t in eval_ms]} ms"
+    )
+    breakdown = device_breakdown(lambda: ev_grown.evaluate(model, params, "test"))
+    if breakdown is None:
+        log("evaluate under torch.profiler: no device activity recorded; breakdown not measured")
+    else:
+        host, busy, kernels = breakdown
+        log(
+            f"evaluate test on the grown set under torch.profiler: host {host:.1f} ms, "
+            f"device busy {busy:.1f} ms ({100.0 * busy / host:.1f}%), by device time:"
+        )
+        for name, ms, n in kernels:
+            log(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+
+    # one get_rep = 1 product with the feature matrix + n_layers with the adjacency
+    n_layers = IGCN_CONFIG["n_layers"]
+
+    def per_get_rep(key):
+        return feat_row[key] + n_layers * adj_row[key]
+
+    kernel = {
+        "name": "spmm_csr",
+        "route": "cuda",
+        "source": "inductive_recommendation_tpu_torch/ops/csrc/spmm_csr.cu",
+        "replaces": "inductive_recommendation_tpu/ops/pallas_spmm.py:35",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": per_get_rep("ms"),
+        "plain_ms": per_get_rep("plain_ms"),
+        "bound_ms": per_get_rep("bound_ms"),
+        "bound_by": "bytes" if feat_row["bound_by"] == adj_row["bound_by"] == "bytes" else "operations",
+        "library_ms": per_get_rep("library_ms"),
+        "per": f"one get_rep: 1 feat + {n_layers} adj products",
+        "detail": [feat_row, adj_row],
+    }
+    print(json.dumps({"kernels": [kernel]}))
+    print(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+
+
+if __name__ == "__main__":
+    main()

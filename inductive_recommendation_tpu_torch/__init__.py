@@ -1,0 +1,42 @@
+"""PyTorch + CUDA port of ``inductive_recommendation_tpu`` for an NVIDIA H100.
+
+The JAX package beside this one is the reference: every ported function is
+tested against its JAX counterpart on the same inputs. This package imports
+``torch`` and numpy, never ``jax`` and nothing of the JAX package. Its module
+names mirror the JAX package's.
+
+The sparse product at the bottom of every graph model is a hand-written CUDA
+kernel (``ops/csrc/spmm_csr.cu``), built with ``nvcc`` at first use; on CPU
+tensors the same functions run their plain PyTorch versions. The entry points
+run on the CUDA card unless the caller passes ``device="cpu"``:
+
+    from inductive_recommendation_tpu_torch import get_dataset, get_model
+    from inductive_recommendation_tpu_torch.eval import Evaluator
+
+    ds = get_dataset({"name": "ProcessedDataset", "path": "data/Gowalla/time"})
+    model = get_model({"name": "IGCN", "embedding_size": 64, "n_layers": 3,
+                       "dropout": 0.3, "feature_ratio": 1}, ds)
+    ev = Evaluator(ds, topks=[20], test_batch_size=512)
+    results, metrics = ev.evaluate(model, model.params(), "test")
+
+Ported so far: the serving path (datasets, graph builders, LightGCN/IGCN/IMF
+representations, full-catalog and inductive evaluation). Training is not.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "get_dataset": "inductive_recommendation_tpu_torch.data",
+    "get_model": "inductive_recommendation_tpu_torch.models",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["get_dataset", "get_model", "__version__"]

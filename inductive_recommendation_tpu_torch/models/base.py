@@ -1,0 +1,69 @@
+"""Model protocol (counterpart of ``inductive_recommendation_tpu/models/base.py``).
+
+A model is an ``nn.Module`` that owns its parameters and its graph layouts on
+one device. Its methods take the parameters as a ``{name: tensor}`` mapping,
+as the JAX package's functions take a parameter pytree, so the same model can
+be scored with parameters carried across from JAX (``models/convert.py``);
+``model.params()`` is the module's own mapping:
+
+    model = get_model(config, dataset, device="cuda")
+    params = model.params()
+    state = model.make_scoring_state(params)   # the full propagated rep
+    scores = model.score(state, users)         # [B, n_items]
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class BasicModel(nn.Module):
+    """Name/shape bookkeeping and the default dot-product scoring
+    (reference model.py:35-53)."""
+
+    def __init__(self, model_config, dataset, device):
+        super().__init__()
+        self.config = dict(model_config)
+        self.name = model_config["name"]
+        self.dataset = dataset
+        self.device = torch.device(device)
+        self.n_users = dataset.n_users
+        self.n_items = dataset.n_items
+        # tables round up to a multiple of this (kept from the JAX package,
+        # where it made row-sharded tables divisible); padding rows are never
+        # read
+        self.table_align = int(model_config.get("table_align", 1))
+
+    def _align_rows(self, n: int) -> int:
+        a = max(self.table_align, 1)
+        return -(-n // a) * a
+
+    def params(self) -> dict[str, torch.Tensor]:
+        """The module's own parameters by name."""
+        return dict(self.named_parameters())
+
+    def init_params(self, generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """Refill the parameters in place from ``generator``; returns params()."""
+        raise NotImplementedError
+
+    def get_rep(self, params, training: bool = False) -> torch.Tensor:
+        """Full [(n_users + n_items), d] representation matrix."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def make_scoring_state(self, params) -> torch.Tensor:
+        """Computed once per evaluation; default: the full representation."""
+        return self.get_rep(params, training=False)
+
+    def score(self, state, users) -> torch.Tensor:
+        """[B, n_items] dot-product scores against the item reps
+        (reference model.py:122-127)."""
+        return state[users] @ state[self.n_users :].T
+
+    def checkpoint_aux(self):
+        """Non-parameter state to persist with a checkpoint."""
+        return {}
+
+    def restore_aux(self, aux):
+        pass

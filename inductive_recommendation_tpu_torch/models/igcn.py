@@ -1,0 +1,141 @@
+"""IGCN, the inductive model (reference model.py:4107-4220), and IMF
+(model.py:4290-4297).
+
+A node's representation is built from its feature (template) row alone: a
+sparse row over the core users/items plus two type tokens, aggregated against
+a core-sized embedding table (``inductive_rep_layer``), then propagated over
+the normalized adjacency. Users and items never seen in training get
+representations without retraining (``attach_dataset``).
+
+As in the JAX package, the annealed feature-matrix weights
+``row_sum^((alpha-1)/2 - 0.5)`` (model.py:4127-4134) are folded into the CSR
+values once per anneal (``ops.csr_spmm.with_annealed_values``), never per
+product. Serving runs 1 + n_layers SpMMs per ``get_rep``.
+
+Not ported yet: the training-time edge dropout on the feature matrix, and
+``feature_ratio < 1`` (it needs ``graph/ranking.py::graph_rank_nodes``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from inductive_recommendation_tpu_torch.graph import build_feat_matrix
+from inductive_recommendation_tpu_torch.models.base import BasicModel
+from inductive_recommendation_tpu_torch.models.lightgcn import build_norm_adj
+from inductive_recommendation_tpu_torch.ops import (
+    build_csr_spmm,
+    propagate_mean,
+    spmm_csr,
+    with_annealed_values,
+)
+
+
+def select_core(dataset, feature_ratio, ranking_metric):
+    """Core (template) user/item selection (model.py:4141-4148) as dense
+    -1-padded map arrays. Only ``feature_ratio >= 1`` (every node is core, as
+    in every IGCN grid entry) is ported."""
+    if feature_ratio < 1.0:
+        raise NotImplementedError(
+            "feature_ratio < 1 needs graph_rank_nodes (graph/ranking.py), not ported yet"
+        )
+    user_map = np.arange(dataset.n_users, dtype=np.int64)
+    item_map = np.arange(dataset.n_items, dtype=np.int64)
+    return user_map, item_map
+
+
+class IGCN(BasicModel):
+    def __init__(self, model_config, dataset, device):
+        super().__init__(model_config, dataset, device)
+        self.embedding_size = model_config["embedding_size"]
+        self.n_layers = model_config["n_layers"]
+        self.dropout = model_config["dropout"]
+        self.feature_ratio = model_config["feature_ratio"]
+        self.alpha = 1.0
+        self.delta = model_config.get("delta", 0.99)
+        self.ranking_metric = model_config.get("ranking_metric", "sort")
+
+        self.user_map, self.item_map = select_core(dataset, self.feature_ratio, self.ranking_metric)
+        self._build_graph_buffers(dataset)
+        n_rows = self._align_rows(self.feat_n_cols)
+        self.embedding = nn.Parameter(torch.empty(n_rows, self.embedding_size, device=self.device))
+        self.w = nn.Parameter(torch.empty(self.embedding_size, device=self.device))
+        self.init_params()
+
+    def _build_graph_buffers(self, dataset):
+        self.user_dim = int((self.user_map >= 0).sum())
+        self.item_dim = int((self.item_map >= 0).sum())
+        row, col, counts, row_sum = build_feat_matrix(
+            dataset.train_array, dataset.n_users, dataset.n_items, self.user_map, self.item_map
+        )
+        self.feat_n_cols = self.user_dim + self.item_dim + 2
+        self._feat_base = build_csr_spmm(
+            row,
+            col,
+            counts,
+            (dataset.n_users + dataset.n_items, self.feat_n_cols),
+            symmetric=False,
+            device=self.device,
+        )
+        self._feat_row_sum = torch.as_tensor(row_sum, device=self.device)
+        self.feat = with_annealed_values(self._feat_base, self._feat_row_sum, self.alpha)
+        self.norm_adj = build_norm_adj(dataset, self.device)
+
+    def attach_dataset(self, dataset):
+        """Inductive protocol: rebuild the graph layouts from a new dataset
+        (train plus new interactions) and keep the core maps and the trained
+        table (model.py:4219); nodes new to the maps get -1."""
+        um = np.full(dataset.n_users, -1, dtype=np.int64)
+        um[: len(self.user_map)] = self.user_map
+        im = np.full(dataset.n_items, -1, dtype=np.int64)
+        im[: len(self.item_map)] = self.item_map
+        self.user_map, self.item_map = um, im
+        self.dataset = dataset
+        self.n_users, self.n_items = dataset.n_users, dataset.n_items
+        self._build_graph_buffers(dataset)
+
+    def feat_mat_anneal(self):
+        """alpha *= delta, and the feature values re-weighted (model.py:4127-4134)."""
+        self.alpha *= self.delta
+        self.feat = with_annealed_values(self._feat_base, self._feat_row_sum, self.alpha)
+
+    @torch.no_grad()
+    def init_params(self, generator=None):
+        self.embedding.normal_(0.0, 0.1, generator=generator)
+        self.w.fill_(1.0)
+        return self.params()
+
+    def inductive_rep_layer(self, params, training=False):
+        if training and self.dropout > 0.0:
+            raise NotImplementedError("feature-matrix edge dropout comes with the training path")
+        return spmm_csr(self.feat, params["embedding"][: self.feat_n_cols])
+
+    def get_rep(self, params, training=False):
+        x0 = self.inductive_rep_layer(params, training=training)
+        return propagate_mean(self.norm_adj, x0, self.n_layers)
+
+    def checkpoint_aux(self):
+        return {
+            "user_map": np.asarray(self.user_map),
+            "item_map": np.asarray(self.item_map),
+            "alpha": float(self.alpha),
+        }
+
+    def restore_aux(self, aux):
+        """Restore the maps and alpha, and rebuild the layouts from the current
+        dataset with them (reference generate_feat(is_updating=True))."""
+        if not aux:
+            return
+        self.user_map = np.asarray(aux["user_map"])
+        self.item_map = np.asarray(aux["item_map"])
+        self.alpha = float(aux["alpha"])
+        self._build_graph_buffers(self.dataset)
+
+
+class IMF(IGCN):
+    """Inductive MF: the inductive rep layer alone, no graph convolution."""
+
+    def get_rep(self, params, training=False):
+        return self.inductive_rep_layer(params, training=training)

@@ -1,0 +1,139 @@
+"""The PyTorch port's IGCN, IMF and LightGCN representations against the JAX
+package's, with the JAX parameters carried across by ``params_from_jax``.
+
+Tolerance rtol 1e-5 / atol 1e-5: 1 + n_layers fp32 SpMMs summed in different
+orders on the two sides."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from inductive_recommendation_tpu import get_dataset as jax_get_dataset
+from inductive_recommendation_tpu import get_model as jax_get_model
+from inductive_recommendation_tpu.data.dataset import BasicDataset as JaxBasicDataset
+from inductive_recommendation_tpu.data.dataset import quick_synthetic_dataset
+from inductive_recommendation_tpu_torch import get_model
+from inductive_recommendation_tpu_torch.models import params_from_jax
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _cfg(name, **kw):
+    cfg = {"name": name, "embedding_size": 16, "n_layers": 2}
+    if name != "LightGCN":
+        cfg.update(dropout=0.3, feature_ratio=1.0)
+    cfg.update(kw)
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def ds():
+    return quick_synthetic_dataset(200, 150, 3000, seed=0)
+
+
+def _pair(cfg, dataset, seed=0):
+    """(jax model, jax params, port model, port params) with equal weights."""
+    jm = jax_get_model(cfg, dataset)
+    jp = jm.init_params(jax.random.key(seed))
+    tm = get_model(cfg, dataset, device="cpu")
+    tp = params_from_jax(tm, {k: np.asarray(v) for k, v in jp.items()})
+    return jm, jp, tm, tp
+
+
+def _rep(model, params):
+    return model.make_scoring_state(params).numpy()
+
+
+@pytest.mark.parametrize("name", ["IGCN", "IMF", "LightGCN"])
+def test_get_rep_matches_jax(ds, name):
+    jm, jp, tm, tp = _pair(_cfg(name), ds)
+    np.testing.assert_allclose(_rep(tm, tp), np.asarray(jm.get_rep(jp)), **TOL)
+    if name == "LightGCN":
+        return
+    for _ in range(2):
+        jm.feat_mat_anneal()
+        tm.feat_mat_anneal()
+    assert tm.alpha == jm.alpha
+    np.testing.assert_allclose(_rep(tm, tp), np.asarray(jm.get_rep(jp)), **TOL)
+
+
+def test_attach_dataset_matches_jax():
+    """The retrain-free cold start of tests/test_igcn.py: 5 new users and 4 new
+    items join after training; the trained table is kept."""
+    base = jax_get_dataset(
+        {
+            "name": "SyntheticDataset",
+            "n_users": 60,
+            "n_items": 50,
+            "n_interactions": 900,
+            "seed": 11,
+            "split_ratio": [0.7, 0.15, 0.15],
+            "min_inter": 3,
+        }
+    )
+    jm, jp, tm, tp = _pair(_cfg("IGCN"), base)
+    new_ds = JaxBasicDataset({"name": "BasicDataset"})
+    new_ds.n_users = base.n_users + 5
+    new_ds.n_items = base.n_items + 4
+    rng = np.random.default_rng(0)
+    extra = []
+    for nu in range(base.n_users, new_ds.n_users):
+        for i in rng.choice(base.n_items, size=3, replace=False):
+            extra.append([nu, int(i)])
+    new_ds.train_data = [list(t) for t in base.train_data] + [[] for _ in range(5)]
+    for u, i in extra:
+        new_ds.train_data[u].append(i)
+    new_ds.train_array = np.concatenate([np.asarray(base.train_array), np.asarray(extra)], axis=0)
+    new_ds.val_data = [[] for _ in range(new_ds.n_users)]
+    new_ds.test_data = [[] for _ in range(new_ds.n_users)]
+
+    jm.attach_dataset(new_ds)
+    tm.attach_dataset(new_ds)
+    rep = _rep(tm, tp)
+    assert rep.shape == (new_ds.n_users + new_ds.n_items, 16)
+    np.testing.assert_allclose(rep, np.asarray(jm.get_rep(jp)), **TOL)
+    assert np.abs(rep[base.n_users : new_ds.n_users]).sum() > 0
+    np.testing.assert_array_equal(tm.user_map, jm.user_map)
+    np.testing.assert_array_equal(tm.item_map, jm.item_map)
+
+
+def test_checkpoint_aux_round_trip(ds):
+    _, _, tm, tp = _pair(_cfg("IGCN"), ds)
+    tm.feat_mat_anneal()
+    aux = tm.checkpoint_aux()
+    before = _rep(tm, tp)
+    other = get_model(_cfg("IGCN"), ds, device="cpu")
+    other.restore_aux(aux)
+    assert other.alpha == tm.alpha
+    np.testing.assert_array_equal(_rep(other, tp), before)
+
+
+def test_params_from_jax_refuses_mismatch(ds):
+    tm = get_model(_cfg("IGCN"), ds, device="cpu")
+    good = {k: v.detach().numpy().copy() for k, v in tm.params().items()}
+    with pytest.raises(ValueError, match="shape"):
+        params_from_jax(tm, {**good, "embedding": good["embedding"][:-1]})
+    with pytest.raises(ValueError, match="missing"):
+        params_from_jax(tm, {"embedding": good["embedding"]})
+    with pytest.raises(ValueError, match="unexpected"):
+        params_from_jax(tm, {**good, "bias": good["w"]})
+    assert set(params_from_jax(tm, good)) == {"embedding", "w"}
+
+
+def test_unported_branches_raise(ds):
+    with pytest.raises(NotImplementedError, match="graph_rank_nodes"):
+        get_model(_cfg("IGCN", feature_ratio=0.8), ds, device="cpu")
+    tm = get_model(_cfg("IGCN"), ds, device="cpu")
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tm.get_rep(tm.params(), training=True)
+
+
+def test_get_model_without_a_card_raises(ds, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(_cfg("IGCN"), ds)
+    from inductive_recommendation_tpu_torch.eval import Evaluator
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Evaluator(ds, topks=[20])
