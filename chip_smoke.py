@@ -10,9 +10,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
    power limit as nvidia-smi gives them;
 2. build: compiles every CUDA source of the port (``ops/csrc/*.cu``);
 3. kernel: the SpMM kernel against its plain PyTorch version on the card, on
-   small edge cases and on the Gowalla-scale adjacency and IGCN feature matrix,
-   with its time, the plain version's, ``torch.sparse.mm``'s, the byte bound
-   and the time of the matrix's heaviest row alone;
+   small edge cases (empty and trailing empty rows, a row over many edge
+   chunks, rows cut exactly at chunk boundaries, the 16-byte path and the
+   general one) and on the Gowalla-scale adjacency and IGCN feature matrix,
+   with its time, the plain version's, ``torch.sparse.mm``'s (each as the
+   median of single calls, and as the median of windows of 10 back-to-back
+   calls), the byte bound, the device time of each of its two launches and
+   the time of the matrix's heaviest row alone; two products on each matrix
+   must be bitwise equal;
 4. slice: IGCN (d=64, 3 layers, feature_ratio 1) over a Gowalla-scale synthetic
    set (29,858 users x 40,981 items, seed 0): ``evaluate``, ``recommend``, one
    ``feat_mat_anneal`` and ``evaluate`` again, checked against the plain SpMM
@@ -48,6 +53,7 @@ from inductive_recommendation_tpu_torch.ops import (
     spmm_csr_cuda,
     spmm_csr_reference,
 )
+from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK
 
 SEED = 0
 N_USERS, N_ITEMS, N_INTER = 29858, 40981, 1_200_000  # Gowalla-scale synthetic set
@@ -75,7 +81,9 @@ def nvidia_smi_name_power() -> str:
 
 
 def median_ms(fn, reps=25, warmup=3) -> float:
-    """Median over ``reps`` single calls, each timed with CUDA events."""
+    """Median over ``reps`` single calls, each timed with CUDA events: the
+    time of one call, the wrapper's host work included when it exceeds the
+    device's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -88,6 +96,28 @@ def median_ms(fn, reps=25, warmup=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def windowed_ms(*fns, reps=15, inner=10, warmup=5) -> list[float]:
+    """Per-call time of each of ``fns`` in a stream of calls: the median over
+    ``reps`` windows of ``inner`` back-to-back calls, each window timed with
+    CUDA events. The functions take turns window by window, so a drift of the
+    card's clock falls on all of them alike."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / inner)
+    return [statistics.median(ts) for ts in times]
 
 
 def host_ms(fn, reps) -> list[float]:
@@ -104,7 +134,8 @@ def host_ms(fn, reps) -> list[float]:
 
 def device_breakdown(fn, top=8):
     """One call of ``fn`` under ``torch.profiler``: (host ms, device busy ms,
-    [(kernel name, ms, launches)] by device time). Busy is the union of the
+    [(kernel name, ms, launches)] by device time: the ``top`` first and the
+    SpMM kernels). Busy is the union of the
     device's kernel and copy intervals. None when the profiler saw no device
     activity: the breakdown is then not measured."""
     from torch.autograd import DeviceType
@@ -130,7 +161,8 @@ def device_breakdown(fn, top=8):
             run_start = start
         run_end = max(run_end, end)
     busy = (busy + run_end - run_start) / 1e3
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    ranked = ranked[:top] + [kv for kv in ranked[top:] if "spmm" in kv[0]]
     return host, busy, [(name, ms, n) for name, (ms, n) in ranked]
 
 
@@ -151,8 +183,16 @@ def spmm_bound_ms(mat, d) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def rows_of_degrees(degrees) -> np.ndarray:
+    return np.repeat(np.arange(len(degrees)), degrees)
+
+
 def check_kernel_edge_cases(rng) -> float:
-    """Empty rows, one row, rows not a multiple of the block, several widths."""
+    """Empty rows (between, leading and trailing), one row, no edges, a row over
+    many chunks, rows of up to three chunks, rows cut exactly at chunk
+    boundaries, rows not a multiple of the block; widths of the 16-byte path
+    (d % 4 == 0) and of the general one (d = 37, and d = 64 with x off 16-byte
+    alignment)."""
     worst = 0.0
     cases = []
     n_rows, n_cols, nnz = 1003, 517, 6000
@@ -160,22 +200,65 @@ def check_kernel_edge_cases(rng) -> float:
     cases.append(("empty rows", row, rng.integers(0, n_cols, nnz), (n_rows, n_cols)))
     cases.append(("one row", np.zeros(37, np.int64), rng.integers(0, 9, 37), (1, 9)))
     cases.append(("no edges", np.zeros(0, np.int64), np.zeros(0, np.int64), (13, 5)))
+    # one row of 12,500 edges (dozens of chunks) among light rows, then 300 empty rows
+    degrees = np.concatenate([rng.integers(0, 6, 500), [12_500], rng.integers(0, 6, 1500), np.zeros(300, np.int64)])
+    cases.append(("long row, trailing empty rows", rows_of_degrees(degrees), None, (len(degrees), 700)))
+    e = EDGES_PER_CHUNK
+    # rows of 0 to 3 chunks: most chunks hold a cut row's tail and the next one's head
+    cases.append(("rows of up to three chunks", rows_of_degrees(rng.integers(0, 3 * e, 300)), None, (300, 400)))
+    # row starts on multiples of the chunk, rows of one chunk and of two, rows
+    # one edge short of and past a boundary, empty rows at a boundary
+    degrees = np.array([e, e, e // 2, e // 2, 2 * e, 0, 0, e - 1, 1, e + 1, e - 1, 3 * e, 0, 1])
+    cases.append(("rows cut at chunk boundaries", rows_of_degrees(degrees), None, (len(degrees), 300)))
     for name, row, col, shape in cases:
+        col = rng.integers(0, shape[1], len(row)) if col is None else col
         mat = build_csr_spmm(row, col, rng.standard_normal(len(row)) + 0.1, shape, device="cuda")
-        for d in (16, 48, 64, 100, 200):
+        for d, aligned in ((16, True), (48, True), (64, True), (100, True), (200, True), (37, False), (64, False)):
             x = torch.as_tensor(rng.standard_normal((shape[1], d)), dtype=torch.float32, device="cuda")
+            if not aligned:  # the same values 4 bytes past an aligned start
+                x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
+            ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
             out = spmm_csr_cuda(mat, x)
             torch.cuda.synchronize()
-            ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
-            worst = max(worst, close(out, ref, f"{name} d={d}"))
+            worst = max(worst, close(out, ref, f"{name} d={d} aligned={aligned}"))
     log(f"kernel edge cases: ok, max abs err {worst:.3g}")
     return worst
+
+
+def kernel_device_ms(fn, calls=20) -> dict[str, float] | None:
+    """Device time per call of ``fn`` by kernel (``spmm_chunk_kernel``,
+    ``spmm_carry_kernel``), from ``torch.profiler`` over ``calls`` calls after
+    one warm-up: what the card spent in each, whatever the host's pace. None
+    when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # the profiler now and then records no device event: try once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for kernel in ("spmm_chunk_kernel", "spmm_carry_kernel"):
+                    if kernel in e.name:
+                        ms = (e.time_range.end - e.time_range.start) / 1e3 / calls
+                        by_kernel[kernel] = by_kernel.get(kernel, 0.0) + ms
+        if by_kernel:
+            return by_kernel
+    return None
 
 
 def measure_spmm(name, mat, x) -> dict:
     """The kernel against the plain version on ``mat`` @ ``x``, and the times."""
     out = spmm_csr_cuda(mat, x)
+    again = spmm_csr_cuda(mat, x)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two products on the same inputs differ")
     ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
     err = close(out, ref, name)
     lib_mat = torch.sparse_csr_tensor(mat.row_ptr, mat.col, mat.val, size=mat.shape)
@@ -186,12 +269,21 @@ def measure_spmm(name, mat, x) -> dict:
         "nnz": mat.nnz,
         "d": int(x.shape[1]),
         "max_abs_err": err,
-        "ms": median_ms(lambda: spmm_csr_cuda(mat, x)),
-        "plain_ms": median_ms(lambda: spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)),
-        "library_ms": median_ms(lambda: torch.sparse.mm(lib_mat, x)),
     }
+    fns = {
+        "ms": lambda: spmm_csr_cuda(mat, x),
+        "plain_ms": lambda: spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x),
+        "library_ms": lambda: torch.sparse.mm(lib_mat, x),
+    }
+    for key, fn in fns.items():
+        row[key] = median_ms(fn)
+    for key, ms in zip(fns, windowed_ms(*fns.values())):
+        row[f"{key}_windowed"] = ms
     row["bound_ms"], row["bound_by"] = spmm_bound_ms(mat, int(x.shape[1]))
-    # the heaviest row alone: one warp walks it, so it floors the whole launch
+    # device time by kernel: launch 1 (the chunks) and launch 2 (the carries)
+    row["kernel_device_ms"] = kernel_device_ms(lambda: spmm_csr_cuda(mat, x))
+    # the heaviest row alone: split over chunks, it should no longer floor
+    # the product
     degrees = torch.diff(mat.row_ptr)
     r = int(torch.argmax(degrees).item())
     s, e = (int(v) for v in mat.row_ptr[r : r + 2].tolist())
@@ -201,12 +293,18 @@ def measure_spmm(name, mat, x) -> dict:
     )
     row["max_degree"] = e - s
     row["heaviest_row_ms"] = median_ms(lambda: spmm_csr_cuda(heavy, x))
+    heavy_device = kernel_device_ms(lambda: spmm_csr_cuda(heavy, x))
+    row["heaviest_row_device_ms"] = heavy_device
     log(
         f"spmm {name}: shape {mat.shape} nnz {mat.nnz} max row degree {e - s} d {x.shape[1]}: "
-        f"max abs err {err:.3g} (torch.sparse.mm {lib_err:.3g}); kernel {row['ms']:.4f} ms, "
-        f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms, "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the heaviest row alone "
-        f"{row['heaviest_row_ms']:.4f} ms"
+        f"max abs err {err:.3g} (torch.sparse.mm {lib_err:.3g}); single calls: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms; windows of 10 calls: "
+        f"kernel {row['ms_windowed']:.4f} ms, plain {row['plain_ms_windowed']:.4f} ms, "
+        f"torch.sparse.mm {row['library_ms_windowed']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); device ms by kernel {row['kernel_device_ms']}; the heaviest row alone "
+        f"{row['heaviest_row_ms']:.4f} ms (single calls), device ms by kernel {heavy_device}; "
+        f"gathered nnz*d*4 B = {4 * mat.nnz * int(x.shape[1]) / 1e6:.1f} MB at {EDGES_PER_CHUNK} edges "
+        f"per chunk; two products bitwise equal"
     )
     return row
 
@@ -323,6 +421,7 @@ def main():
         raise AssertionError(f"get_rep: shape {tuple(rep.shape)} or non-finite values")
     log(f"get_rep vs the plain SpMM chain: max abs err {rep_err:.3g}")
     get_rep_ms = median_ms(lambda: model.make_scoring_state(params), reps=20)
+    (get_rep_windowed_ms,) = windowed_ms(lambda: model.make_scoring_state(params))
     ev = Evaluator(ds, topks=TOPKS, test_batch_size=TEST_BATCH)
 
     spmm_csr_cuda.launches = 0  # the serving path starts here
@@ -361,14 +460,21 @@ def main():
     for tag, m in slices.items():
         check_metrics(m, tag)
         log(f"inductive NDCG@20 {tag}: {m['NDCG'][20]:.6f}")
-    if per_call != [4] * len(per_call) or launches != 4 * n_get_rep:
+    # each get_rep is 1 feat + n_layers adj products, each the same count of launches
+    n_products = n_get_rep * (1 + IGCN_CONFIG["n_layers"])
+    per_rep, launches_per_product = launches // n_get_rep, launches // n_products
+    if launches == 0 or launches != launches_per_product * n_products or per_call != [per_rep] * len(per_call):
         raise AssertionError(f"spmm_csr launches: {per_call} per call, {launches} for {n_get_rep} get_rep")
-    log(f"spmm_csr launches on the serving path: {launches} over {n_get_rep} get_rep (4 each)")
+    log(
+        f"spmm_csr launches on the serving path: {launches} over {n_get_rep} get_rep ({per_rep} each, "
+        f"{launches_per_product} per product)"
+    )
 
     # 6. times, after the counted run: the model now serves the grown set
     eval_ms = host_ms(lambda: ev_grown.evaluate(model, params, "test"), 3)
     log(
-        f"times on {card}: get_rep {get_rep_ms:.3f} ms (median of 20, {ds.n_users} users x {ds.n_items} items); "
+        f"times on {card}: get_rep {get_rep_ms:.3f} ms (median of 20 single calls; {get_rep_windowed_ms:.3f} ms "
+        f"in windows of 10 calls), {ds.n_users} users x {ds.n_items} items; "
         f"evaluate test {eval_first_ms:.1f} ms (first call, same set); evaluate test on the grown set "
         f"({grown.n_users} x {grown.n_items}), warm: {[round(t, 1) for t in eval_ms]} ms"
     )
@@ -396,13 +502,18 @@ def main():
         "source": "inductive_recommendation_tpu_torch/ops/csrc/spmm_csr.cu",
         "replaces": "inductive_recommendation_tpu/ops/pallas_spmm.py:35",
         "launches": launches,
+        "launches_per_product": launches_per_product,
         "max_abs_err": max_err,
         "ms": per_get_rep("ms"),
         "plain_ms": per_get_rep("plain_ms"),
         "bound_ms": per_get_rep("bound_ms"),
         "bound_by": "bytes" if feat_row["bound_by"] == adj_row["bound_by"] == "bytes" else "operations",
         "library_ms": per_get_rep("library_ms"),
-        "per": f"one get_rep: 1 feat + {n_layers} adj products",
+        "ms_windowed": per_get_rep("ms_windowed"),
+        "plain_ms_windowed": per_get_rep("plain_ms_windowed"),
+        "library_ms_windowed": per_get_rep("library_ms_windowed"),
+        "per": f"one get_rep: 1 feat + {n_layers} adj products; *_ms: median of single calls, "
+        "*_ms_windowed: median of windows of 10 back-to-back calls",
         "detail": [feat_row, adj_row],
     }
     print(json.dumps({"kernels": [kernel]}))

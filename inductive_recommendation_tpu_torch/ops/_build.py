@@ -28,7 +28,10 @@ NVCC_FLAGS = [
 # the C entry points of each source: name -> [(function, argtypes)]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "spmm_csr": [("spmm_csr_forward", [_P, _P, _P, _P, _P, _I, _I, _P])],
+    "spmm_csr": [
+        ("spmm_csr_chunks", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        ("spmm_csr_carries", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    ],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -2,8 +2,9 @@
 
 Counterpart of ``inductive_recommendation_tpu/ops/bucketed_spmm.py``. The JAX
 package groups rows into degree buckets because the TPU has no fast scatter;
-on the GPU one warp reduces one CSR row (``csrc/spmm_csr.cu``), so the layout
-is plain CSR. It keeps the bucketed layout's contract:
+on the GPU warps split the edges into equal chunks and a second pass adds the
+pieces of the rows cut by a chunk boundary (``csrc/spmm_csr.cu``), so the
+layout is plain CSR. It keeps the bucketed layout's contract:
 
 - edge ids are assigned in the raw COO order, *before* explicit zeros are
   dropped, so a per-edge scale built in the caller's COO order lines up;
@@ -23,6 +24,10 @@ import numpy as np
 import torch
 
 from inductive_recommendation_tpu_torch.ops import _build
+
+# Edges per warp in the kernel's first launch: kEdgesPerChunk in
+# csrc/spmm_csr.cu, which must equal it.
+EDGES_PER_CHUNK = 192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +100,19 @@ def spmm_csr_reference(row_ptr, col, val, x) -> torch.Tensor:
     return out.index_add_(0, row_of_edges(row_ptr), x.index_select(0, col) * val[:, None])
 
 
+def n_chunks(nnz: int) -> int:
+    """Edge chunks of the kernel's first launch: one even for a matrix with no edges."""
+    return max(1, -(-nnz // EDGES_PER_CHUNK))
+
+
 def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``csrc/spmm_csr.cu`` on the current stream: out = A @ x, with
     ``val`` (default ``mat.val``) as A's edge values.
 
-    Raises on anything the kernel does not take. ``spmm_csr_cuda.launches``
-    counts the launches."""
+    A product is two launches when the edges span more than one chunk of
+    ``EDGES_PER_CHUNK``: the chunks, then the rows cut by a chunk boundary;
+    one launch otherwise. ``spmm_csr_cuda.launches`` counts the launches of
+    both kernels. Raises on anything the kernels do not take."""
     val = mat.val if val is None else val
     tensors = {"row_ptr": mat.row_ptr, "col": mat.col, "val": val, "x": x}
     for name, t in tensors.items():
@@ -119,20 +131,36 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
         raise ValueError("the kernel indexes edges and columns with int32")
     if torch.is_grad_enabled() and (x.requires_grad or val.requires_grad):
         raise NotImplementedError("spmm_csr_cuda has no backward kernel yet; call it under torch.no_grad()")
-    n_rows, d = mat.n_rows, int(x.shape[1])
+    n_rows, nnz, d = mat.n_rows, mat.nnz, int(x.shape[1])
     out = torch.empty(n_rows, d, dtype=torch.float32, device=x.device)
     if n_rows == 0 or d == 0:
         return out
+    chunks = n_chunks(nnz)
+    # the partial sums of the rows cut by chunk boundaries, [chunk][first/last
+    # row][d], and the row each chunk leaves unfinished (-1 for none)
+    carry = cut_row = None
+    if chunks > 1:
+        carry = torch.empty(chunks, 2, d, dtype=torch.float32, device=x.device)
+        cut_row = torch.empty(chunks, dtype=torch.int32, device=x.device)
     lib = _build.load("spmm_csr")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.spmm_csr_forward(
-            mat.row_ptr.data_ptr(), mat.col.data_ptr(), val.data_ptr(),
-            x.data_ptr(), out.data_ptr(), n_rows, d, stream,
+        err = lib.spmm_csr_chunks(
+            mat.row_ptr.data_ptr(), mat.col.data_ptr(), val.data_ptr(), x.data_ptr(), out.data_ptr(),
+            None if carry is None else carry.data_ptr(), None if cut_row is None else cut_row.data_ptr(),
+            n_rows, nnz, d, chunks, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"spmm_csr kernel launch failed: cudaError {err}")
-    spmm_csr_cuda.launches += 1
+        if err != 0:
+            raise RuntimeError(f"spmm_csr chunk kernel launch failed: cudaError {err}")
+        spmm_csr_cuda.launches += 1
+        if carry is not None:
+            err = lib.spmm_csr_carries(
+                mat.row_ptr.data_ptr(), cut_row.data_ptr(), carry.data_ptr(), out.data_ptr(),
+                n_rows, d, chunks, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"spmm_csr carry kernel launch failed: cudaError {err}")
+            spmm_csr_cuda.launches += 1
     return out
 
 
