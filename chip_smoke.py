@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``inductive_recommendation_tpu_torch``) on one
-CUDA card: the IGCN serving path at full width, through its CUDA kernel.
+CUDA card: the IGCN serving and training paths at full width, through the
+port's CUDA kernel.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
@@ -9,7 +10,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
 1. card: requires ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi gives them;
 2. build: compiles every CUDA source of the port (``ops/csrc/*.cu``);
-3. kernel: the SpMM kernel against its plain PyTorch version on the card, on
+3. kernel: the SpMM kernel against its plain PyTorch version on the card (the
+   plain version evaluated in float64, so that the error measured is the
+   kernel's own fp32 rounding), on
    small edge cases (empty and trailing empty rows, a row over many edge
    chunks, rows cut exactly at chunk boundaries, the 16-byte path and the
    general one) and on the Gowalla-scale adjacency and IGCN feature matrix,
@@ -25,16 +28,30 @@ Phases, each of which raises on failure (the exit code is then not 0):
 5. inductive: ``attach_dataset`` onto the set grown by 1,000 new users and
    1,000 new items, then ``inductive_eval`` over its six slices;
 6. times: ``get_rep`` and ``evaluate``, and one ``evaluate`` under
-   ``torch.profiler`` (device time by kernel, device busy share).
+   ``torch.profiler`` (device time by kernel, device busy share);
+7. train: IGCN's training path on a fresh model. (a) On the Gowalla-scale
+   layouts, the kernel against its plain version: the transpose product, the
+   dropout product (p 0.3) forward and transpose, and the gradient of the
+   embedding through the autograd Function against autograd through the
+   plain version; the edges the kernel keeps are exactly those of
+   ``edge_uniform``, the keep rate is within 4 binomial sigma of 0.7, and the
+   same seed gives the same bits. (b) ``get_trainer`` on the grid's IGCN
+   config for 2 epochs: the loss falls, val NDCG@20 beats the random-init
+   model's, and the reloaded best checkpoint has alpha = 0.99^k and the same
+   metrics. (c) One step is 16 launches (8 products). (d) Step time (single
+   steps and windows of 10), examples/s, epoch seconds, and one step under
+   ``torch.profiler``.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
-serving path and read just after. The last lines are one JSON object of
-kernel numbers and then ``{"ok": true, "device": {...}}``.
+serving path and read just after, and again around the training run of
+phase 7. The last lines are one JSON object of kernel numbers and then
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -42,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from inductive_recommendation_tpu_torch import get_model
+from inductive_recommendation_tpu_torch import get_model, get_trainer
 from inductive_recommendation_tpu_torch.data import BasicDataset, quick_synthetic_dataset
 from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
 from inductive_recommendation_tpu_torch.models import params_from_jax
@@ -50,14 +67,25 @@ from inductive_recommendation_tpu_torch.ops import (
     CsrSpMM,
     _build,
     build_csr_spmm,
+    edge_uniform,
+    propagate_mean,
     spmm_csr_cuda,
+    spmm_csr_dropout,
+    spmm_csr_dropout_reference,
     spmm_csr_reference,
 )
-from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK
+from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values, reset_launch_counts
 
 SEED = 0
 N_USERS, N_ITEMS, N_INTER = 29858, 40981, 1_200_000  # Gowalla-scale synthetic set
 IGCN_CONFIG = {"name": "IGCN", "embedding_size": 64, "n_layers": 3, "dropout": 0.3, "feature_ratio": 1}
+# the IGCN grid entry's trainer (configs/grids.py:21-35,72-84 of the JAX
+# package), cut to 2 epochs with validation after each
+TRAINER_CONFIG = {
+    "name": "IGCNTrainer", "optimizer": "Adam", "lr": 1e-3, "l2_reg": 0.0, "aux_reg": 0.01,
+    "n_epochs": 2, "val_interval": 1, "batch_size": 2048, "test_batch_size": 512,
+    "topks": [1] + list(range(5, 101, 5)),
+}
 TOPKS = [20]
 TEST_BATCH = 512
 N_NEW = 1000
@@ -65,6 +93,10 @@ N_NEW = 1000
 # flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# integer operations of one edge's Philox4x32-10 draw (10 rounds of 2
+# mul.hi, 2 mul.lo, 4 xor and 2 key adds), counted at the fp32 rate: the
+# published table has no int32 rate, so this term is a lower bound
+PHILOX_OPS_PER_EDGE = 100
 REL_TOL = 1e-5
 
 
@@ -135,9 +167,10 @@ def host_ms(fn, reps) -> list[float]:
 def device_breakdown(fn, top=8):
     """One call of ``fn`` under ``torch.profiler``: (host ms, device busy ms,
     [(kernel name, ms, launches)] by device time: the ``top`` first and the
-    SpMM kernels). Busy is the union of the
-    device's kernel and copy intervals. None when the profiler saw no device
-    activity: the breakdown is then not measured."""
+    SpMM kernels, device launches in all). Busy is the union of the device's
+    kernel and copy intervals (user annotations such as ``Optimizer.step``
+    are left out). None when the profiler saw no device activity: the
+    breakdown is then not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -148,7 +181,9 @@ def device_breakdown(fn, top=8):
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3
     spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name) for e in prof.events() if e.device_type == DeviceType.CUDA
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     )
     if not spans:
         return None
@@ -163,7 +198,7 @@ def device_breakdown(fn, top=8):
     busy = (busy + run_end - run_start) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     ranked = ranked[:top] + [kv for kv in ranked[top:] if "spmm" in kv[0]]
-    return host, busy, [(name, ms, n) for name, (ms, n) in ranked]
+    return host, busy, [(name, ms, n) for name, (ms, n) in ranked], len(spans)
 
 
 def close(out, ref, what) -> float:
@@ -175,11 +210,13 @@ def close(out, ref, what) -> float:
     return err
 
 
-def spmm_bound_ms(mat, d) -> tuple[float, str]:
-    """Least time for one product: CSR (row_ptr, col, val), x and out moved
-    once, against 2 * nnz * d fp32 flops."""
-    n_bytes = 4 * (mat.n_rows + 1) + 8 * mat.nnz + 4 * d * (mat.n_cols + mat.n_rows)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2.0 * mat.nnz * d / FP32_FLOPS
+def spmm_bound_ms(mat, d, dropout=False) -> tuple[float, str]:
+    """Least time for one product: CSR (row_ptr, col, val; eid too under
+    dropout), x and out moved once, against 2 * nnz * d fp32 flops (plus the
+    Philox draw of every edge under dropout)."""
+    n_bytes = 4 * (mat.n_rows + 1) + (12 if dropout else 8) * mat.nnz + 4 * d * (mat.n_cols + mat.n_rows)
+    n_ops = (2.0 * d + (PHILOX_OPS_PER_EDGE if dropout else 0)) * mat.nnz
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -217,7 +254,7 @@ def check_kernel_edge_cases(rng) -> float:
             x = torch.as_tensor(rng.standard_normal((shape[1], d)), dtype=torch.float32, device="cuda")
             if not aligned:  # the same values 4 bytes past an aligned start
                 x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
-            ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
+            ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x.double())
             out = spmm_csr_cuda(mat, x)
             torch.cuda.synchronize()
             worst = max(worst, close(out, ref, f"{name} d={d} aligned={aligned}"))
@@ -252,36 +289,55 @@ def kernel_device_ms(fn, calls=20) -> dict[str, float] | None:
     return None
 
 
-def measure_spmm(name, mat, x) -> dict:
-    """The kernel against the plain version on ``mat`` @ ``x``, and the times."""
-    out = spmm_csr_cuda(mat, x)
-    again = spmm_csr_cuda(mat, x)
+def measure_spmm(name, mat, x, drop=None) -> dict:
+    """The kernel against the plain version on ``mat`` @ ``x`` (with the edge
+    dropout ``drop`` = (seed, p) when given), and the times. Under dropout
+    the plain version draws the mask itself, while ``torch.sparse.mm`` gets
+    it folded into its CSR's values: the mask's cost is outside its time."""
+
+    def kernel():
+        return spmm_csr_cuda(mat, x, drop=drop)
+
+    if drop is None:
+        lib_val = mat.val
+
+        def plain(x=x):
+            return spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
+    else:
+        lib_val = dropout_values(mat.val, mat.eid, *drop)
+
+        def plain(x=x):
+            return spmm_csr_dropout_reference(mat, x, *drop)
+
+    out = kernel()
+    again = kernel()
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"{name}: two products on the same inputs differ")
-    ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
+    ref = plain(x.double())
     err = close(out, ref, name)
-    lib_mat = torch.sparse_csr_tensor(mat.row_ptr, mat.col, mat.val, size=mat.shape)
+    lib_mat = torch.sparse_csr_tensor(mat.row_ptr, mat.col, lib_val, size=mat.shape)
     lib_err = (torch.sparse.mm(lib_mat, x) - ref).abs().max().item()
     row = {
         "matrix": name,
         "shape": list(mat.shape),
         "nnz": mat.nnz,
         "d": int(x.shape[1]),
+        "dropout_p": None if drop is None else drop[1],
         "max_abs_err": err,
     }
     fns = {
-        "ms": lambda: spmm_csr_cuda(mat, x),
-        "plain_ms": lambda: spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x),
+        "ms": kernel,
+        "plain_ms": plain,
         "library_ms": lambda: torch.sparse.mm(lib_mat, x),
     }
     for key, fn in fns.items():
         row[key] = median_ms(fn)
     for key, ms in zip(fns, windowed_ms(*fns.values())):
         row[f"{key}_windowed"] = ms
-    row["bound_ms"], row["bound_by"] = spmm_bound_ms(mat, int(x.shape[1]))
+    row["bound_ms"], row["bound_by"] = spmm_bound_ms(mat, int(x.shape[1]), dropout=drop is not None)
     # device time by kernel: launch 1 (the chunks) and launch 2 (the carries)
-    row["kernel_device_ms"] = kernel_device_ms(lambda: spmm_csr_cuda(mat, x))
+    row["kernel_device_ms"] = kernel_device_ms(kernel)
     # the heaviest row alone: split over chunks, it should no longer floor
     # the product
     degrees = torch.diff(mat.row_ptr)
@@ -292,11 +348,11 @@ def measure_spmm(name, mat, x) -> dict:
         col=mat.col[s:e], val=mat.val[s:e], eid=mat.eid[s:e], n_rows=1, n_cols=mat.n_cols,
     )
     row["max_degree"] = e - s
-    row["heaviest_row_ms"] = median_ms(lambda: spmm_csr_cuda(heavy, x))
-    heavy_device = kernel_device_ms(lambda: spmm_csr_cuda(heavy, x))
+    row["heaviest_row_ms"] = median_ms(lambda: spmm_csr_cuda(heavy, x, drop=drop))
+    heavy_device = kernel_device_ms(lambda: spmm_csr_cuda(heavy, x, drop=drop))
     row["heaviest_row_device_ms"] = heavy_device
     log(
-        f"spmm {name}: shape {mat.shape} nnz {mat.nnz} max row degree {e - s} d {x.shape[1]}: "
+        f"spmm {name}: shape {mat.shape} nnz {mat.nnz} max row degree {e - s} d {x.shape[1]} dropout {drop}: "
         f"max abs err {err:.3g} (torch.sparse.mm {lib_err:.3g}); single calls: kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms; windows of 10 calls: "
         f"kernel {row['ms_windowed']:.4f} ms, plain {row['plain_ms_windowed']:.4f} ms, "
@@ -310,8 +366,8 @@ def measure_spmm(name, mat, x) -> dict:
 
 
 def plain_rep(model, params):
-    """IGCN get_rep through the plain SpMM, on the same device."""
-    emb = params["embedding"][: model.feat_n_cols]
+    """IGCN get_rep through the plain SpMM, on the same device, in float64."""
+    emb = params["embedding"][: model.feat_n_cols].double()
     x = spmm_csr_reference(model.feat.row_ptr, model.feat.col, model.feat.val, emb)
     acc = x
     for _ in range(model.n_layers):
@@ -364,6 +420,180 @@ def grown_dataset(ds, rng):
         [(u, i) for u, t in enumerate(grown.train_data) for i in t], dtype=np.int64
     )
     return grown
+
+
+def kept_by_kernel(eid, seed, p):
+    """The kernel's mask for the edge ids ``eid``: a layout of one edge per
+    row (column 0, value 1, edge id eid[e]) times x = 1, so row e holds edge
+    e's dropout value, 1 / (1 - p) or 0."""
+    n, dev = eid.shape[0], eid.device
+    per_edge = CsrSpMM(
+        row_ptr=torch.arange(n + 1, dtype=torch.int32, device=dev),
+        col=torch.zeros(n, dtype=torch.int32, device=dev),
+        val=torch.ones(n, device=dev),
+        eid=eid,
+        n_rows=n,
+        n_cols=1,
+    )
+    return spmm_csr_cuda(per_edge, torch.ones(1, 4, device=dev), drop=(seed, p))[:, 0]
+
+
+def check_dropout_mask(name, mat, seed, p) -> int:
+    """The edges the kernel keeps are exactly those ``edge_uniform`` keeps,
+    with the same values; the keep rate is within 4 binomial sigma of 1 - p.
+    Returns the kept count."""
+    got = kept_by_kernel(mat.eid, seed, p)
+    want = dropout_values(torch.ones_like(mat.val), mat.eid, seed, p)
+    kept_kernel, kept_plain = int((got != 0).sum()), int((edge_uniform(seed, mat.eid) >= p).sum())
+    if kept_kernel != kept_plain or not torch.equal(got, want):
+        raise AssertionError(f"{name}: the kernel keeps {kept_kernel} edges, edge_uniform {kept_plain}")
+    n = mat.nnz
+    sigma = (n * p * (1 - p)) ** 0.5
+    if abs(kept_kernel - (1 - p) * n) > 4 * sigma:
+        raise AssertionError(f"{name}: {kept_kernel} of {n} edges kept, {(1 - p) * n:.0f} +- {4 * sigma:.0f} expected")
+    log(f"dropout mask {name}: kernel and edge_uniform keep the same {kept_kernel} of {n} edges "
+        f"({kept_kernel / n:.5f}; 1 - p = {1 - p}, 4 sigma = {4 * sigma / n:.5f})")
+    return kept_kernel
+
+
+def check_training_kernels(model, emb, rng) -> dict:
+    """Phase 7 (a): the training uses of the kernel at the Gowalla-scale
+    layouts, against the plain version, and their times."""
+    feat, adj, d = model.feat, model.norm_adj, int(emb.shape[1])
+    p, seed = IGCN_CONFIG["dropout"], int(rng.integers(0, 2**62))
+    g = torch.as_tensor(rng.normal(0.0, 0.1, (feat.n_rows, d)), dtype=torch.float32, device=emb.device)
+    with torch.no_grad():
+        for name, mat in (("feat", feat), ("feat^T", feat.T)):
+            check_dropout_mask(name, mat, seed, p)
+        a = spmm_csr_cuda(feat, emb, drop=(seed, p))
+        if not torch.equal(a, spmm_csr_cuda(feat, emb, drop=(seed, p))):
+            raise AssertionError("two dropout products with the same seed differ")
+        if torch.equal(a, spmm_csr_cuda(feat, emb, drop=(seed + 1, p))):
+            raise AssertionError("dropout products with different seeds are equal")
+        rows = {
+            "transpose": measure_spmm("feat^T", feat.T, g),
+            "transpose_dropout": measure_spmm("feat^T dropout", feat.T, g, drop=(seed, p)),
+            "dropout": measure_spmm("feat dropout", feat, emb, drop=(seed, p)),
+        }
+
+    # the gradient of the embedding: the autograd Functions (kernel forward,
+    # kernel on the transpose layouts backward) against autograd through the
+    # plain version in float64, under one dropout mask
+    w = torch.as_tensor(rng.normal(0.0, 1.0, (adj.n_rows, d)), dtype=torch.float32, device=emb.device)
+    x_kernel = emb.detach().clone().requires_grad_(True)
+    rep = propagate_mean(adj, spmm_csr_dropout(feat, x_kernel, seed, p), model.n_layers)
+    (rep * w).sum().backward()
+    x_plain = emb.detach().double().requires_grad_(True)
+    x = spmm_csr_dropout_reference(feat, x_plain, seed, p)
+    acc = x
+    for _ in range(model.n_layers):
+        x = spmm_csr_reference(adj.row_ptr, adj.col, adj.val, x)
+        acc = acc + x
+    (acc / float(model.n_layers + 1) * w.double()).sum().backward()
+    rows["grad_err"] = close(x_kernel.grad, x_plain.grad, "embedding gradient through the kernels vs the plain version")
+    log(f"embedding gradient (dropout {p}, {model.n_layers} layers): max abs err {rows['grad_err']:.3g} "
+        f"(max |plain| {x_plain.grad.abs().max().item():.3g})")
+    return rows
+
+
+def train_and_check(trainer, card) -> dict:
+    """Phase 7 (b)-(d): the trainer's IGCN trained for its epochs, checked,
+    counted and timed."""
+    model = trainer.model
+    _, init_metrics = trainer.eval("val")
+    losses, epoch_s, val_metrics = [], [], []
+    train_one_epoch, evaluate = trainer.train_one_epoch, trainer.eval
+
+    def recorded_epoch():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train_one_epoch()
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        return loss
+
+    def recorded_eval(stage, banned_items=None):
+        results, metrics = evaluate(stage, banned_items)
+        val_metrics.append(metrics)
+        return results, metrics
+
+    trainer.train_one_epoch, trainer.eval = recorded_epoch, recorded_eval
+    reset_launch_counts()  # the training path starts here
+    trainer.train(verbose=True)
+    launches, route_launches = spmm_csr_cuda.launches, dict(spmm_csr_cuda.route_launches)  # and ends here
+    trainer.train_one_epoch, trainer.eval = train_one_epoch, evaluate
+    if min(route_launches["forward"], route_launches["forward_dropout"], route_launches["transpose_dropout"]) == 0:
+        raise AssertionError(f"a route of the kernel was not launched in training: {route_launches}")
+
+    ndcg = [m["NDCG"][20] for m in val_metrics]
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"epoch losses {losses}: the second is not below the first")
+    best = ndcg.index(max(ndcg)) + 1  # epochs up to and including the best one
+    alpha = 1.0
+    for _ in range(best):
+        alpha *= model.delta
+    if model.alpha != alpha:
+        raise AssertionError(f"reloaded alpha {model.alpha}, expected {model.delta}^{best} = {alpha}")
+    _, final = trainer.eval("val")
+    if not final["NDCG"][20] > init_metrics["NDCG"][20]:
+        raise AssertionError(f"val NDCG@20 {final['NDCG'][20]} after training, {init_metrics['NDCG'][20]} at init")
+    for name in ("Precision", "Recall", "NDCG"):
+        if abs(final[name][20] - val_metrics[best - 1][name][20]) > 1e-6:
+            raise AssertionError(f"the reloaded checkpoint's val {name}@20 {final[name][20]} != {val_metrics[best - 1][name][20]}")
+    check_metrics(final, "val after training")
+    log(
+        f"train: epoch losses {losses}; val NDCG@20 {init_metrics['NDCG'][20]:.6f} at init, {ndcg} by epoch, "
+        f"{final['NDCG'][20]:.6f} after reloading epoch {best} (alpha {model.alpha}); epoch s {epoch_s}; "
+        f"{trainer.steps_per_epoch} steps an epoch; launches {launches} {route_launches}"
+    )
+    os.remove(trainer.save_path)
+
+    # (c) one step: every sparse product of the forward and the backward
+    reset_launch_counts()
+    trainer.step()
+    torch.cuda.synchronize()
+    per_step = dict(spmm_csr_cuda.route_launches)
+    n_products = 2 * (1 + model.n_layers)
+    if spmm_csr_cuda.launches != 2 * n_products or per_step["transpose"] != 0:
+        raise AssertionError(f"one step launched {spmm_csr_cuda.launches} ({per_step}), expected {2 * n_products}")
+    log(f"one step: {spmm_csr_cuda.launches} launches for {n_products} products: {per_step}")
+
+    # (d) times
+    step_ms = median_ms(trainer.step, reps=30)
+    (step_windowed_ms,) = windowed_ms(trainer.step)
+    out = {
+        "card": card,
+        "batch_size": trainer.batch_size,
+        "steps_per_epoch": trainer.steps_per_epoch,
+        "step_ms": step_ms,
+        "step_ms_windowed": step_windowed_ms,
+        "examples_per_s": trainer.batch_size / step_ms * 1e3,
+        "examples_per_s_windowed": trainer.batch_size / step_windowed_ms * 1e3,
+        "epoch_s": epoch_s,
+        "epoch_losses": losses,
+        "val_ndcg20_init": init_metrics["NDCG"][20],
+        "val_ndcg20_by_epoch": ndcg,
+        "launches_train_run": launches,
+        "route_launches_train_run": route_launches,
+        "launches_per_step": per_step,
+    }
+    breakdown = device_breakdown(trainer.step, top=12)
+    if breakdown is None:
+        log("one step under torch.profiler: no device activity recorded; breakdown not measured")
+    else:
+        host, busy, kernels, n_spans = breakdown
+        out["profiled_step"] = {"host_ms": host, "device_busy_ms": busy, "device_launches": n_spans, "kernels": kernels}
+        log(f"one step under torch.profiler: host {host:.3f} ms, device busy {busy:.3f} ms "
+            f"({100.0 * busy / host:.1f}%), {n_spans} device launches, by device time:")
+        for name, ms, n in kernels:
+            log(f"  {ms:9.4f} ms {n:5d}x  {name[:100]}")
+    log(
+        f"train step on {card}: {step_ms:.3f} ms (median of 30 single steps), {step_windowed_ms:.3f} ms "
+        f"(windows of 10 steps); {out['examples_per_s']:.0f} / {out['examples_per_s_windowed']:.0f} examples/s; "
+        f"epoch {epoch_s} s"
+    )
+    return out
 
 
 def main():
@@ -482,13 +712,23 @@ def main():
     if breakdown is None:
         log("evaluate under torch.profiler: no device activity recorded; breakdown not measured")
     else:
-        host, busy, kernels = breakdown
+        host, busy, kernels, n_spans = breakdown
         log(
             f"evaluate test on the grown set under torch.profiler: host {host:.1f} ms, "
-            f"device busy {busy:.1f} ms ({100.0 * busy / host:.1f}%), by device time:"
+            f"device busy {busy:.1f} ms ({100.0 * busy / host:.1f}%), {n_spans} device launches, by device time:"
         )
         for name, ms, n in kernels:
             log(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+
+    # 7. train, on a fresh model of the Gowalla-scale set: the kernel's
+    # training uses at its layouts, then IGCNTrainer
+    trainer = get_trainer(TRAINER_CONFIG, ds, get_model(IGCN_CONFIG, ds))
+    train_rows = check_training_kernels(
+        trainer.model, trainer.params["embedding"][: trainer.model.feat_n_cols].detach(), rng
+    )
+    max_err = max(max_err, *(train_rows[k]["max_abs_err"] for k in ("transpose", "transpose_dropout", "dropout")))
+    train = train_and_check(trainer, card)
+    log("train: " + json.dumps(train))
 
     # one get_rep = 1 product with the feature matrix + n_layers with the adjacency
     n_layers = IGCN_CONFIG["n_layers"]
@@ -514,9 +754,43 @@ def main():
         "library_ms_windowed": per_get_rep("library_ms_windowed"),
         "per": f"one get_rep: 1 feat + {n_layers} adj products; *_ms: median of single calls, "
         "*_ms_windowed: median of windows of 10 back-to-back calls",
+        "launches_per_step": train["launches_per_step"]["forward"],
         "detail": [feat_row, adj_row],
     }
-    print(json.dumps({"kernels": [kernel]}))
+    routes = train["route_launches_train_run"]
+
+    def entry(name, row, launches, per_step, per, detail):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_windowed", "plain_ms_windowed",
+                "library_ms_windowed", "max_abs_err")
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "inductive_recommendation_tpu_torch/ops/csrc/spmm_csr.cu",
+            "replaces": "inductive_recommendation_tpu/ops/pallas_spmm.py:35",
+            "launches": launches,
+            "launches_per_step": per_step,
+            **{k: row[k] for k in keys},
+            "per": per,
+            "detail": detail,
+        }
+
+    transpose = entry(
+        "spmm_csr_transpose", train_rows["transpose_dropout"],
+        routes["transpose"] + routes["transpose_dropout"],
+        train["launches_per_step"]["transpose"] + train["launches_per_step"]["transpose_dropout"],
+        "the backward of the feature product: feat^T @ g on the transpose CSR under the step's dropout "
+        f"(p {IGCN_CONFIG['dropout']}); library_ms: torch.sparse.mm on the transpose CSR with the mask in its values",
+        [train_rows["transpose_dropout"], train_rows["transpose"]],
+    )
+    dropout = entry(
+        "spmm_csr_dropout", train_rows["dropout"], routes["forward_dropout"],
+        train["launches_per_step"]["forward_dropout"],
+        f"the forward feature product with in-kernel edge dropout (p {IGCN_CONFIG['dropout']}); library_ms: "
+        "torch.sparse.mm on a CSR with the mask folded into its values (the mask's cost is outside it)",
+        [train_rows["dropout"]],
+    )
+    transpose["grad_max_abs_err"] = train_rows["grad_err"]
+    print(json.dumps({"kernels": [kernel, transpose, dropout]}))
     print(
         json.dumps(
             {

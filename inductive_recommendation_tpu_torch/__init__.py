@@ -10,17 +10,22 @@ kernel (``ops/csrc/spmm_csr.cu``), built with ``nvcc`` at first use; on CPU
 tensors the same functions run their plain PyTorch versions. The entry points
 run on the CUDA card unless the caller passes ``device="cpu"``:
 
-    from inductive_recommendation_tpu_torch import get_dataset, get_model
-    from inductive_recommendation_tpu_torch.eval import Evaluator
+    from inductive_recommendation_tpu_torch import get_dataset, get_model, get_trainer
 
     ds = get_dataset({"name": "ProcessedDataset", "path": "data/Gowalla/time"})
     model = get_model({"name": "IGCN", "embedding_size": 64, "n_layers": 3,
                        "dropout": 0.3, "feature_ratio": 1}, ds)
-    ev = Evaluator(ds, topks=[20], test_batch_size=512)
-    results, metrics = ev.evaluate(model, model.params(), "test")
+    trainer = get_trainer({"name": "IGCNTrainer", "optimizer": "Adam", "lr": 1e-3,
+                           "l2_reg": 0.0, "aux_reg": 0.01, "n_epochs": 1000,
+                           "batch_size": 2048, "topks": [20]}, ds, model)
+    trainer.train()                        # writes checkpoints/ in the working directory
+    results, metrics = trainer.eval("test")
 
 Ported so far: the serving path (datasets, graph builders, LightGCN/IGCN/IMF
-representations, full-catalog and inductive evaluation). Training is not.
+representations, full-catalog and inductive evaluation) and the training
+path (the BPR sampler, the losses, BasicTrainer/BPRTrainer/IGCNTrainer with
+Adam, early stopping and checkpoints), whose backward runs the same kernel
+on the transpose layouts.
 """
 
 __version__ = "0.1.0"
@@ -28,6 +33,7 @@ __version__ = "0.1.0"
 _LAZY = {
     "get_dataset": "inductive_recommendation_tpu_torch.data",
     "get_model": "inductive_recommendation_tpu_torch.models",
+    "get_trainer": "inductive_recommendation_tpu_torch.train",
 }
 
 
@@ -39,4 +45,4 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["get_dataset", "get_model", "__version__"]
+__all__ = ["get_dataset", "get_model", "get_trainer", "__version__"]

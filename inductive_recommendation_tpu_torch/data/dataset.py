@@ -6,8 +6,9 @@ per-user matrices that evaluation needs go to a device
 (:func:`device_padded_from_lists`).
 
 Ported so far: ``BasicDataset``, ``ProcessedDataset`` (pre-split text files,
-reference dataset.py:140-164) and ``quick_synthetic_dataset``. The raw
-parsers, the k-core filter and ``SyntheticDataset`` are not ported yet.
+reference dataset.py:140-164), ``AuxiliaryDataset`` and
+``quick_synthetic_dataset``. The raw parsers, the k-core filter and
+``SyntheticDataset`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,6 +81,39 @@ class ProcessedDataset(BasicDataset):
             self.n_items = max(self.n_items, int(flat.max()) + 1)
         lists = [flat[offs[u] : offs[u + 1]].tolist() for u in range(len(offs) - 1)]
         return lists, flat, offs
+
+
+class AuxiliaryDataset(BasicDataset):
+    """Train interactions remapped to a model's core (template) id space
+    (reference dataset.py:258-273): user ``user_map[u]`` holds ``item_map[i]``
+    for each train item i of user u with both maps >= 0, in u's order.
+    ``user_map``/``item_map`` are dense -1-padded arrays; ``len`` is the
+    source's epoch size."""
+
+    def __init__(self, dataset, user_map, item_map):
+        super().__init__({"name": "AuxiliaryDataset"})
+        user_map = np.asarray(user_map, dtype=np.int64)
+        item_map = np.asarray(item_map, dtype=np.int64)
+        self.n_users = int((user_map >= 0).sum())
+        self.n_items = int((item_map >= 0).sum())
+        self.negative_sample_ratio = 1
+        self.length = len(dataset)
+        lengths = [len(t) for t in dataset.train_data]
+        users = np.repeat(user_map[: len(lengths)], lengths)
+        items = np.concatenate([np.asarray(t, np.int64) for t in dataset.train_data] + [np.zeros(0, np.int64)])
+        items = item_map[items]
+        keep = (users >= 0) & (items >= 0)
+        users, items = users[keep], items[keep]
+        # a map is one-to-one, so a stable sort by core user keeps each
+        # user's items in order
+        order = np.argsort(users, kind="stable")
+        users, items = users[order], items[order]
+        offsets = np.concatenate([[0], np.cumsum(np.bincount(users, minlength=self.n_users))])
+        self.train_data = [items[offsets[u] : offsets[u + 1]].tolist() for u in range(self.n_users)]
+        self.train_array = np.stack([users, items], axis=1)
+
+    def __len__(self):
+        return self.length
 
 
 def _flatten_ragged(lists, pad_to):

@@ -10,6 +10,8 @@ be scored with parameters carried across from JAX (``models/convert.py``);
     params = model.params()
     state = model.make_scoring_state(params)   # the full propagated rep
     scores = model.score(state, users)         # [B, n_items]
+    u_r, p_r, n_r, l2 = model.bpr_forward(params, users, pos, neg,
+                                          generator=cpu_generator)  # training
 """
 
 from __future__ import annotations
@@ -47,8 +49,13 @@ class BasicModel(nn.Module):
         """Refill the parameters in place from ``generator``; returns params()."""
         raise NotImplementedError
 
-    def get_rep(self, params, training: bool = False) -> torch.Tensor:
-        """Full [(n_users + n_items), d] representation matrix."""
+    def get_rep(self, params, training: bool = False, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Full [(n_users + n_items), d] representation matrix; ``generator``
+        (on the CPU) seeds training-time randomness."""
+        raise NotImplementedError
+
+    def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
+        """-> (users_r, pos_r, neg_r, l2_norm_sq) for a BPR batch of int64 ids."""
         raise NotImplementedError
 
     @torch.no_grad()
@@ -67,3 +74,12 @@ class BasicModel(nn.Module):
 
     def restore_aux(self, aux):
         pass
+
+
+def l2_sq_rows(*tensors) -> torch.Tensor:
+    """Per-sample sum of squared L2 norms, the reference's regularizer
+    (model.py:69-70 et al.)."""
+    total = 0.0
+    for t in tensors:
+        total = total + (t * t).sum(dim=-1)
+    return total

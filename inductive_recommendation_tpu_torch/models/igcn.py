@@ -10,10 +10,13 @@ representations without retraining (``attach_dataset``).
 As in the JAX package, the annealed feature-matrix weights
 ``row_sum^((alpha-1)/2 - 0.5)`` (model.py:4127-4134) are folded into the CSR
 values once per anneal (``ops.csr_spmm.with_annealed_values``), never per
-product. Serving runs 1 + n_layers SpMMs per ``get_rep``.
+product. A ``get_rep`` runs 1 + n_layers SpMMs, and its backward as many on
+the transpose layouts. In training the feature-matrix product drops edges in
+the kernel, from a hash of the edge id (``ops.csr_spmm.spmm_csr_dropout``;
+reference model.py:4189 via NGCF.dropout_sp_mat).
 
-Not ported yet: the training-time edge dropout on the feature matrix, and
-``feature_ratio < 1`` (it needs ``graph/ranking.py::graph_rank_nodes``).
+Not ported yet: ``feature_ratio < 1`` (it needs
+``graph/ranking.py::graph_rank_nodes``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from torch import nn
 
 from inductive_recommendation_tpu_torch.graph import build_feat_matrix
-from inductive_recommendation_tpu_torch.models.base import BasicModel
+from inductive_recommendation_tpu_torch.models.base import BasicModel, l2_sq_rows
 from inductive_recommendation_tpu_torch.models.lightgcn import build_norm_adj
 from inductive_recommendation_tpu_torch.ops import (
     build_csr_spmm,
@@ -31,6 +34,7 @@ from inductive_recommendation_tpu_torch.ops import (
     spmm_csr,
     with_annealed_values,
 )
+from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed, spmm_csr_dropout
 
 
 def select_core(dataset, feature_ratio, ranking_metric):
@@ -107,14 +111,26 @@ class IGCN(BasicModel):
         self.w.fill_(1.0)
         return self.params()
 
-    def inductive_rep_layer(self, params, training=False):
+    def inductive_rep_layer(self, params, training=False, generator=None):
+        """The feature-matrix product; in training with edge dropout, its seed
+        drawn from the CPU ``generator``."""
+        emb = params["embedding"][: self.feat_n_cols]
         if training and self.dropout > 0.0:
-            raise NotImplementedError("feature-matrix edge dropout comes with the training path")
-        return spmm_csr(self.feat, params["embedding"][: self.feat_n_cols])
+            return spmm_csr_dropout(self.feat, emb, dropout_seed(generator), self.dropout)
+        return spmm_csr(self.feat, emb)
 
-    def get_rep(self, params, training=False):
-        x0 = self.inductive_rep_layer(params, training=training)
+    def get_rep(self, params, training=False, generator=None):
+        x0 = self.inductive_rep_layer(params, training=training, generator=generator)
         return propagate_mean(self.norm_adj, x0, self.n_layers)
+
+    def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
+        """NGCF.bpr_forward shape (model.py:4202-4203): the propagated reps of
+        the batch, L2 on those reps."""
+        rep = self.get_rep(params, training=training, generator=generator)
+        users_r = rep[users]
+        pos_r = rep[self.n_users + pos_items]
+        neg_r = rep[self.n_users + neg_items]
+        return users_r, pos_r, neg_r, l2_sq_rows(users_r, pos_r, neg_r)
 
     def checkpoint_aux(self):
         return {
@@ -137,5 +153,5 @@ class IGCN(BasicModel):
 class IMF(IGCN):
     """Inductive MF: the inductive rep layer alone, no graph convolution."""
 
-    def get_rep(self, params, training=False):
-        return self.inductive_rep_layer(params, training=training)
+    def get_rep(self, params, training=False, generator=None):
+        return self.inductive_rep_layer(params, training=training, generator=generator)

@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from inductive_recommendation_tpu_torch.graph import sym_normalized_adjacency
-from inductive_recommendation_tpu_torch.models.base import BasicModel
+from inductive_recommendation_tpu_torch.models.base import BasicModel, l2_sq_rows
 from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mean
 
 
@@ -34,6 +34,14 @@ class LightGCN(BasicModel):
         self.embedding.normal_(0.0, 0.1, generator=generator)
         return self.params()
 
-    def get_rep(self, params, training=False):
+    def get_rep(self, params, training=False, generator=None):
         emb = params["embedding"][: self.n_users + self.n_items]
         return propagate_mean(self.norm_adj, emb, self.n_layers)
+
+    def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
+        """The propagated reps of the batch, L2 on the ego embeddings
+        (model.py:114-117)."""
+        rep = self.get_rep(params, training=training)
+        emb = params["embedding"]
+        l2 = l2_sq_rows(emb[users], emb[self.n_users + pos_items], emb[self.n_users + neg_items])
+        return rep[users], rep[self.n_users + pos_items], rep[self.n_users + neg_items], l2

@@ -4,8 +4,11 @@ SpMM (``csrc/spmm_csr.cu``) and its plain PyTorch version."""
 from inductive_recommendation_tpu_torch.ops.csr_spmm import (
     CsrSpMM,
     build_csr_spmm,
+    edge_uniform,
     spmm_csr,
     spmm_csr_cuda,
+    spmm_csr_dropout,
+    spmm_csr_dropout_reference,
     spmm_csr_reference,
     with_annealed_values,
 )
@@ -15,8 +18,11 @@ from inductive_recommendation_tpu_torch.ops.topk import mask_scores, masked_topk
 __all__ = [
     "CsrSpMM",
     "build_csr_spmm",
+    "edge_uniform",
     "spmm_csr",
     "spmm_csr_cuda",
+    "spmm_csr_dropout",
+    "spmm_csr_dropout_reference",
     "spmm_csr_reference",
     "with_annealed_values",
     "propagate_mean",

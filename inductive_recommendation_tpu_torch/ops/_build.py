@@ -26,10 +26,10 @@ NVCC_FLAGS = [
 ]
 
 # the C entry points of each source: name -> [(function, argtypes)]
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
 SIGNATURES = {
     "spmm_csr": [
-        ("spmm_csr_chunks", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        ("spmm_csr_chunks", [_P, _P, _P, _P, _U64, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         ("spmm_csr_carries", [_P, _P, _P, _P, _I, _I, _I, _P]),
     ],
 }

@@ -10,10 +10,20 @@ layout is plain CSR. It keeps the bucketed layout's contract:
   dropped, so a per-edge scale built in the caller's COO order lines up;
 - rows are sorted stably (edges of one row keep their COO order);
 - ``row_ptr`` int32 ``[n_rows + 1]``, ``col`` int32 ``[nnz]``, ``val`` fp32
-  ``[nnz]`` and ``eid`` int32 ``[nnz]``.
+  ``[nnz]`` and ``eid`` int32 ``[nnz]``;
+- a layout built with ``symmetric=False`` carries its transpose (rows = the
+  columns, sorted stably, with the same edge ids), on which the backward
+  ``A^T @ g`` runs the same kernel; a symmetric layout is its own transpose.
 
-Only the forward product exists so far; its transpose layout and the
-edge-id-hashed dropout belong to the training path.
+Gradients flow to the dense operand only (``torch.autograd.Function``s around
+the kernel): edge values are graph buffers, not parameters.
+
+Edge dropout (``spmm_csr_dropout``) keeps edge e with its value scaled by
+1/(1-p) when ``u(seed, eid[e]) >= p``, with u from a counter-based Philox
+draw of the edge id, so the forward and the transpose drop the same edges
+(JAX ``bucketed_spmm.py:254-275,330-370``; its threefry bits differ). The
+kernel draws u in its first launch; :func:`edge_uniform` computes the same
+bits with torch integer ops on any device.
 """
 
 from __future__ import annotations
@@ -35,7 +45,9 @@ class CsrSpMM:
     """Row-sorted CSR of a sparse ``[n_rows, n_cols]`` matrix on one device.
 
     ``symmetric=True`` asserts A == A^T (the sym-normalized adjacency); a
-    per-edge scale is then refused, since (A o S)^T != A o S in general."""
+    per-edge scale or dropout is then refused, since (A o S)^T != A o S in
+    general. Otherwise ``transpose`` holds A^T (``transposed=True`` there),
+    or None for a layout built by hand, which then has no backward."""
 
     row_ptr: torch.Tensor  # int32 [n_rows + 1]
     col: torch.Tensor  # int32 [nnz]
@@ -44,6 +56,8 @@ class CsrSpMM:
     n_rows: int
     n_cols: int
     symmetric: bool = False
+    transpose: CsrSpMM | None = None
+    transposed: bool = False
 
     @property
     def shape(self):
@@ -53,22 +67,21 @@ class CsrSpMM:
     def nnz(self) -> int:
         return int(self.col.shape[0])
 
+    @property
+    def T(self) -> CsrSpMM:
+        if self.symmetric:
+            return self
+        if self.transpose is None:
+            raise ValueError("this layout carries no transpose; build it with build_csr_spmm")
+        return self.transpose
+
     def edge_rows(self) -> torch.Tensor:
         """int32 [nnz] row of every edge."""
         return row_of_edges(self.row_ptr)
 
 
-def build_csr_spmm(row, col, val, shape, symmetric: bool = False, device="cpu") -> CsrSpMM:
-    """Host-side constructor from COO arrays (numpy), placed on ``device``."""
-    row = np.asarray(row, dtype=np.int64)
-    col = np.asarray(col, dtype=np.int64)
-    val = np.asarray(val, dtype=np.float32)
-    n_rows, n_cols = (int(s) for s in shape)
-    if len(row) >= 2**31:
-        raise ValueError(f"nnz {len(row)} does not fit the int32 CSR")
-    eid = np.arange(len(row), dtype=np.int64)
-    nz = val != 0.0
-    row, col, val, eid = row[nz], col[nz], val[nz], eid[nz]
+def _one_side(row, col, val, eid, n_rows, n_cols, device, **flags) -> CsrSpMM:
+    """CSR of the COO edges with rows sorted stably."""
     order = np.argsort(row, kind="stable")
     row, col, val, eid = row[order], col[order], val[order], eid[order]
     row_ptr = np.zeros(n_rows + 1, dtype=np.int64)
@@ -84,8 +97,26 @@ def build_csr_spmm(row, col, val, shape, symmetric: bool = False, device="cpu") 
         eid=put(eid, torch.int32),
         n_rows=n_rows,
         n_cols=n_cols,
-        symmetric=symmetric,
+        **flags,
     )
+
+
+def build_csr_spmm(row, col, val, shape, symmetric: bool = False, device="cpu") -> CsrSpMM:
+    """Host-side constructor from COO arrays (numpy), placed on ``device``;
+    with ``symmetric=False`` the transpose layout is built beside it."""
+    row = np.asarray(row, dtype=np.int64)
+    col = np.asarray(col, dtype=np.int64)
+    val = np.asarray(val, dtype=np.float32)
+    n_rows, n_cols = (int(s) for s in shape)
+    if len(row) >= 2**31:
+        raise ValueError(f"nnz {len(row)} does not fit the int32 CSR")
+    eid = np.arange(len(row), dtype=np.int64)
+    nz = val != 0.0
+    row, col, val, eid = row[nz], col[nz], val[nz], eid[nz]
+    if symmetric:
+        return _one_side(row, col, val, eid, n_rows, n_cols, device, symmetric=True)
+    transpose = _one_side(col, row, val, eid, n_cols, n_rows, device, transposed=True)
+    return _one_side(row, col, val, eid, n_rows, n_cols, device, transpose=transpose)
 
 
 def row_of_edges(row_ptr: torch.Tensor) -> torch.Tensor:
@@ -100,37 +131,114 @@ def spmm_csr_reference(row_ptr, col, val, x) -> torch.Tensor:
     return out.index_add_(0, row_of_edges(row_ptr), x.index_select(0, col) * val[:, None])
 
 
+# -- edge dropout: Philox4x32-10 of the edge id --------------------------------
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key increments
+
+
+def _mulhilo32(a: int, b: torch.Tensor):
+    """(high, low) 32-bit words of a * b, for a < 2^32 and int64 b in
+    [0, 2^32): b is split into 16-bit halves so that no product overflows
+    int64."""
+    low = a * (b & 0xFFFF)  # < 2^48
+    high = a * (b >> 16)  # < 2^48
+    t = low + ((high & 0xFFFF) << 16)  # a * b = t + (high >> 16) * 2^32
+    return (high >> 16) + (t >> 32), t & _M32
+
+
+def philox_word0(seed: int, counter: torch.Tensor) -> torch.Tensor:
+    """First output word of Philox4x32-10 (Salmon et al., SC'11) keyed by the
+    64-bit ``seed`` (low word first), at the counters (counter, 0, 0, 0):
+    int64 values in [0, 2^32). ``counter`` holds values in [0, 2^32)."""
+    k0, k1 = seed & _M32, (seed >> 32) & _M32
+    c0 = counter.to(torch.int64)
+    c1 = c2 = c3 = torch.zeros_like(c0)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0
+
+
+def edge_uniform(seed: int, eid: torch.Tensor) -> torch.Tensor:
+    """fp32 u in [0, 1) per edge: the top 24 bits of ``philox_word0(seed,
+    eid)`` times 2^-24, exact in fp32, as the kernel draws it."""
+    return (philox_word0(seed, eid) >> 8).to(torch.float32) * 2.0**-24
+
+
+def _check_dropout(seed, p):
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"seed {seed} is not a 64-bit unsigned integer")
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout p {p} is not in [0, 1)")
+
+
+def dropout_values(val: torch.Tensor, eid: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+    """The edge values under dropout: ``val / (1 - p)`` where
+    ``edge_uniform(seed, eid) >= p``, else 0, in fp32 as the kernel computes
+    them."""
+    p32 = torch.tensor(p, dtype=torch.float32, device=val.device)
+    keep = edge_uniform(seed, eid) >= p32
+    return torch.where(keep, val / (1.0 - p32), 0.0)
+
+
+def spmm_csr_dropout_reference(mat: CsrSpMM, x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+    """Plain PyTorch version of the dropout product (A o M) @ x."""
+    return spmm_csr_reference(mat.row_ptr, mat.col, dropout_values(mat.val, mat.eid, seed, p), x)
+
+
+def dropout_seed(generator: torch.Generator | None = None) -> int:
+    """A dropout seed drawn from a CPU ``generator`` (torch's default one when
+    None): a host draw, so a training step does not wait for the card."""
+    return int(torch.randint(0, 2**62, (), generator=generator))
+
+
+# -- the kernel ----------------------------------------------------------------
+
+
 def n_chunks(nnz: int) -> int:
     """Edge chunks of the kernel's first launch: one even for a matrix with no edges."""
     return max(1, -(-nnz // EDGES_PER_CHUNK))
 
 
-def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None) -> torch.Tensor:
+def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None, drop=None) -> torch.Tensor:
     """Launch ``csrc/spmm_csr.cu`` on the current stream: out = A @ x, with
-    ``val`` (default ``mat.val``) as A's edge values.
+    ``val`` (default ``mat.val``) as A's edge values and, when ``drop`` =
+    ``(seed, p)``, the edge dropout drawn in the kernel from ``mat.eid``.
+    Records no autograd: :func:`spmm_csr` and :func:`spmm_csr_dropout` do.
 
     A product is two launches when the edges span more than one chunk of
     ``EDGES_PER_CHUNK``: the chunks, then the rows cut by a chunk boundary;
     one launch otherwise. ``spmm_csr_cuda.launches`` counts the launches of
-    both kernels. Raises on anything the kernels do not take."""
+    both kernels, and ``spmm_csr_cuda.route_launches`` the same launches by
+    layout side and dropout (``forward``, ``transpose``, ``forward_dropout``,
+    ``transpose_dropout``). Raises on anything the kernels do not take."""
     val = mat.val if val is None else val
     tensors = {"row_ptr": mat.row_ptr, "col": mat.col, "val": val, "x": x}
+    if drop is not None:
+        _check_dropout(*drop)
+        tensors["eid"] = mat.eid
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} is on {t.device}; the kernel needs every operand on {x.device} (cuda)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, dtype in (("row_ptr", torch.int32), ("col", torch.int32), ("val", torch.float32), ("x", torch.float32)):
-        if tensors[name].dtype != dtype:
+    for name, dtype in (("row_ptr", torch.int32), ("col", torch.int32), ("eid", torch.int32),
+                        ("val", torch.float32), ("x", torch.float32)):
+        if name in tensors and tensors[name].dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {tensors[name].dtype}")
     if x.ndim != 2 or x.shape[0] != mat.n_cols:
         raise ValueError(f"x must be [n_cols={mat.n_cols}, d], got {tuple(x.shape)}")
-    if val.shape != mat.col.shape or mat.row_ptr.shape[0] != mat.n_rows + 1:
-        raise ValueError("row_ptr/col/val do not describe one CSR matrix")
+    if val.shape != mat.col.shape or mat.eid.shape != mat.col.shape or mat.row_ptr.shape[0] != mat.n_rows + 1:
+        raise ValueError("row_ptr/col/val/eid do not describe one CSR matrix")
     if mat.nnz >= 2**31 or x.shape[1] >= 2**31:
         raise ValueError("the kernel indexes edges and columns with int32")
     if torch.is_grad_enabled() and (x.requires_grad or val.requires_grad):
-        raise NotImplementedError("spmm_csr_cuda has no backward kernel yet; call it under torch.no_grad()")
+        raise NotImplementedError("spmm_csr_cuda records no autograd; call spmm_csr or spmm_csr_dropout")
     n_rows, nnz, d = mat.n_rows, mat.nnz, int(x.shape[1])
     out = torch.empty(n_rows, d, dtype=torch.float32, device=x.device)
     if n_rows == 0 or d == 0:
@@ -142,17 +250,22 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
     if chunks > 1:
         carry = torch.empty(chunks, 2, d, dtype=torch.float32, device=x.device)
         cut_row = torch.empty(chunks, dtype=torch.int32, device=x.device)
+    seed, p = (0, 0.0) if drop is None else drop
+    route = ("transpose" if mat.transposed else "forward") + ("" if drop is None else "_dropout")
     lib = _build.load("spmm_csr")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.spmm_csr_chunks(
-            mat.row_ptr.data_ptr(), mat.col.data_ptr(), val.data_ptr(), x.data_ptr(), out.data_ptr(),
+            mat.row_ptr.data_ptr(), mat.col.data_ptr(), val.data_ptr(),
+            None if drop is None else mat.eid.data_ptr(), seed, p,
+            x.data_ptr(), out.data_ptr(),
             None if carry is None else carry.data_ptr(), None if cut_row is None else cut_row.data_ptr(),
             n_rows, nnz, d, chunks, stream,
         )
         if err != 0:
             raise RuntimeError(f"spmm_csr chunk kernel launch failed: cudaError {err}")
         spmm_csr_cuda.launches += 1
+        spmm_csr_cuda.route_launches[route] += 1
         if carry is not None:
             err = lib.spmm_csr_carries(
                 mat.row_ptr.data_ptr(), cut_row.data_ptr(), carry.data_ptr(), out.data_ptr(),
@@ -161,40 +274,98 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
             if err != 0:
                 raise RuntimeError(f"spmm_csr carry kernel launch failed: cudaError {err}")
             spmm_csr_cuda.launches += 1
+            spmm_csr_cuda.route_launches[route] += 1
     return out
 
 
-spmm_csr_cuda.launches = 0
+def reset_launch_counts():
+    """Set ``spmm_csr_cuda.launches`` and every route's count to 0."""
+    spmm_csr_cuda.launches = 0
+    spmm_csr_cuda.route_launches = dict.fromkeys(
+        ("forward", "transpose", "forward_dropout", "transpose_dropout"), 0
+    )
+
+
+reset_launch_counts()
+
+
+# -- products with autograd ------------------------------------------------------
+
+
+def _product(mat: CsrSpMM, x: torch.Tensor, edge_scale=None, drop=None) -> torch.Tensor:
+    """(A o scale) @ x, or (A o M) @ x under ``drop`` = (seed, p): the kernel
+    for a CUDA ``x`` (or it raises), the plain version for a CPU one."""
+    val = mat.val if edge_scale is None else mat.val * edge_scale[mat.eid]
+    if x.device.type == "cuda":
+        return spmm_csr_cuda(mat, x.contiguous(), val.contiguous(), drop)
+    if x.device.type == "cpu":
+        if drop is not None:
+            val = dropout_values(val, mat.eid, *drop)
+        return spmm_csr_reference(mat.row_ptr, mat.col, val, x)
+    raise ValueError(f"spmm_csr runs on cuda or cpu tensors, not {x.device}")
+
+
+class _CsrProduct(torch.autograd.Function):
+    """out = (A o S) @ x, or (A o M) @ x under ``drop``; grad_x is the
+    transpose product (A o S)^T @ g on the transpose layout, under the same
+    (seed, p) so that the same edges drop (JAX ``bucketed_spmm.py:286-303,
+    330-350``)."""
+
+    @staticmethod
+    def forward(ctx, x, mat, edge_scale, drop):
+        ctx.mat, ctx.edge_scale, ctx.drop = mat, edge_scale, drop
+        return _product(mat, x, edge_scale, drop)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _product(ctx.mat.T, g.contiguous(), ctx.edge_scale, ctx.drop), None, None, None
+
+
+def _check_operand(mat: CsrSpMM, x: torch.Tensor):
+    if x.ndim != 2 or x.shape[0] != mat.n_cols:
+        raise ValueError(f"x must be [n_cols={mat.n_cols}, d], got {tuple(x.shape)}")
 
 
 def spmm_csr(mat: CsrSpMM, x: torch.Tensor, edge_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """out = (A o scale) @ x.
+    """out = (A o scale) @ x, differentiable in ``x``.
 
     ``edge_scale``: optional fp32 [raw COO nnz] per-edge multiplier in the COO
     order given at construction. A CUDA ``x`` runs the hand-written kernel
     (or raises); a CPU ``x`` runs :func:`spmm_csr_reference`."""
     if edge_scale is not None and mat.symmetric:
         raise ValueError("edge_scale with a shared-symmetric layout is incorrect; build with symmetric=False")
-    if x.ndim != 2 or x.shape[0] != mat.n_cols:
-        raise ValueError(f"x must be [n_cols={mat.n_cols}, d], got {tuple(x.shape)}")
-    val = mat.val if edge_scale is None else mat.val * edge_scale[mat.eid]
-    if x.device.type == "cuda":
-        return spmm_csr_cuda(mat, x.contiguous(), val.contiguous())
-    if x.device.type == "cpu":
-        return spmm_csr_reference(mat.row_ptr, mat.col, val, x)
-    raise ValueError(f"spmm_csr runs on cuda or cpu tensors, not {x.device}")
+    _check_operand(mat, x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CsrProduct.apply(x, mat, edge_scale, None)
+    return _product(mat, x, edge_scale)
+
+
+def spmm_csr_dropout(mat: CsrSpMM, x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+    """out = (A o M) @ x with M = keep/(1-p), keep = ``edge_uniform(seed,
+    eid) >= p``, differentiable in ``x`` (reference ``sparse_dropout``,
+    model.py:4016-4028). Needs a layout built with ``symmetric=False``."""
+    if mat.symmetric:
+        raise ValueError("edge dropout with a shared-symmetric layout is incorrect; build with symmetric=False")
+    _check_dropout(seed, p)
+    _check_operand(mat, x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _CsrProduct.apply(x, mat, None, (seed, p))
+    return _product(mat, x, drop=(seed, p))
 
 
 def with_annealed_values(mat: CsrSpMM, row_sum: torch.Tensor, alpha: float) -> CsrSpMM:
     """A copy of ``mat`` whose values carry IGCN's annealed degree-power weights
-    ``val * clamp(row_sum, 1e-12)[row] ** ((alpha - 1) / 2 - 0.5)``
+    ``val * clamp(row_sum, 1e-12)[feature row] ** ((alpha - 1) / 2 - 0.5)``
     (reference model.py:4127-4175), computed once per anneal, not per product.
-
-    Covers the forward layout only; the transpose side comes with training."""
+    The feature row of an edge is its row in the forward layout and its
+    column in the transpose (JAX ``bucketed_spmm.py:412-427``)."""
     if mat.symmetric:
         raise ValueError("annealed values require symmetric=False")
     # the exponent in fp32, as the JAX package computes it
     expo = (torch.tensor(float(alpha), dtype=torch.float32) - 1.0) / 2.0 - 0.5
     rs = torch.clamp(row_sum.to(device=mat.val.device, dtype=torch.float32), min=1e-12)
     w = torch.pow(rs, expo.to(rs.device))
-    return dataclasses.replace(mat, val=mat.val * w[mat.edge_rows().long()])
+    t = mat.transpose
+    if t is not None:
+        t = dataclasses.replace(t, val=t.val * w[t.col.long()])
+    return dataclasses.replace(mat, val=mat.val * w[mat.edge_rows().long()], transpose=t)

@@ -46,9 +46,21 @@
 //    group of G lanes per chunk, the same VW-float loads as launch 1, in
 //    batches of 16 partials.
 //
+// Edge dropout (training): given an eid array, launch 1 also stages each
+// chunk's edge ids and rewrites the staged values before any gather: edge e
+// keeps val[e] / (1 - p) when u >= p, else 0, with u the top 24 bits of the
+// first word of Philox4x32-10 keyed by the 64-bit seed at the counter
+// (eid[e], 0, 0, 0), times 2^-24 (exact in fp32, so u >= p compares as the
+// plain version's edge_uniform does). The draw depends on the edge id alone,
+// so the transpose layout (same eids) drops the same edges in the backward.
+// It is a compile-time variant (kDrop): the serving instantiation is the
+// same code as without it. Launch 2 does not read edges and is unchanged.
+// The training backward runs both launches on the transpose CSR.
+//
 // Contract (checked by the Python wrapper before the call): every pointer is
-// on the current device, row_ptr/col are int32, val/x/out/carry are fp32 and
-// contiguous, x has d columns, nnz = row_ptr[n_rows] < 2^31, n_chunks =
+// on the current device, row_ptr/col/eid are int32, val/x/out/carry are fp32
+// and contiguous, eid is null or holds nnz ids in [0, 2^31), 0 <= p < 1, x
+// has d columns, nnz = row_ptr[n_rows] < 2^31, n_chunks =
 // max(1, ceil(nnz / E)) (the wrapper's n_chunks, with EDGES_PER_CHUNK = E),
 // and carry holds 2 * d floats and cut_row one int32 per chunk when there is
 // more than one chunk. The carry buffer is [chunk][2][d] whatever lane layout
@@ -100,6 +112,26 @@ __device__ __forceinline__ void cp_async4(void* smem_ptr, const void* gptr) {
 }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// The first output word of Philox4x32-10 (Salmon et al., SC'11) at the
+// counter (c0, 0, 0, 0) under the key (k0, k1): philox_word0 in csr_spmm.py.
+__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t k0, uint32_t k1) {
+  uint32_t c1 = 0, c2 = 0, c3 = 0;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return c0;
+}
 
 template <int VW>
 struct Vec;
@@ -176,14 +208,16 @@ __device__ __forceinline__ Vec<VW> row_sum(const int* s_col, const float* s_val,
   return acc;
 }
 
-template <int G, int VW>
+template <int G, int VW, bool kDrop>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 spmm_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
-                  const float* __restrict__ val, const float* __restrict__ x,
+                  const float* __restrict__ val, const int* __restrict__ eid,
+                  unsigned long long seed, float p, const float* __restrict__ x,
                   float* __restrict__ out, float* __restrict__ carry, int* __restrict__ cut_row,
                   int n_rows, int nnz, int d, int n_chunks) {
   __shared__ int s_cols[kWarpsPerBlock][kEdgesPerChunk];
   __shared__ float s_vals[kWarpsPerBlock][kEdgesPerChunk];
+  __shared__ int s_eids[kDrop ? kWarpsPerBlock : 1][kDrop ? kEdgesPerChunk : 1];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarpsPerBlock + warp;
@@ -202,10 +236,20 @@ spmm_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   for (int i = lane; i < ce - cs; i += 32) {
     cp_async4(s_col + i, col + cs + i);
     cp_async4(s_val + i, val + cs + i);
+    if constexpr (kDrop) cp_async4(s_eids[warp] + i, eid + cs + i);
   }
   int r = warp_lower_bound(row_ptr, n_rows, cs, lane);  // the first row starting at or after cs
   int start = __ldg(row_ptr + r);
   cp_async_wait_all();
+  if constexpr (kDrop) {
+    // each lane rewrites the values it staged itself, before the warp syncs
+    const uint32_t k0 = static_cast<uint32_t>(seed), k1 = static_cast<uint32_t>(seed >> 32);
+    for (int i = lane; i < ce - cs; i += 32) {
+      const uint32_t bits = philox_word0(static_cast<uint32_t>(s_eids[warp][i]), k0, k1);
+      const float u = static_cast<float>(bits >> 8) * 5.9604644775390625e-8f;  // 2^-24
+      s_val[i] = u >= p ? s_val[i] / (1.0f - p) : 0.0f;
+    }
+  }
   __syncwarp();
   if (r > 0 && start > cs) {  // row r - 1 runs into this chunk from an earlier one
     const Vec<VW> s = row_sum<G, VW>(s_col, s_val, 0, min(start, ce) - cs, x, d, col0, active, group);
@@ -287,19 +331,20 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // Launch 1: every row with all its edges in one chunk, and the carries of the
-// others.
-extern "C" int spmm_csr_chunks(const void* row_ptr, const void* col, const void* val,
-                               const void* x, void* out, void* carry, void* cut_row, int n_rows,
-                               int nnz, int d, int n_chunks, void* stream) {
+// others; with edge dropout when eid is not null.
+extern "C" int spmm_csr_chunks(const void* row_ptr, const void* col, const void* val, const void* eid,
+                               unsigned long long seed, float p, const void* x, void* out, void* carry,
+                               void* cut_row, int n_rows, int nnz, int d, int n_chunks, void* stream) {
   if (n_rows > 0 && d > 0) {
     const bool vec = d % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(carry);
     with_layout(d, vec, [&](auto g, auto vw) {
       constexpr int G = decltype(g)::value, VW = decltype(vw)::value;
       const dim3 grid((unsigned)((n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock), (unsigned)((d + G * VW - 1) / (G * VW)));
-      spmm_chunk_kernel<G, VW><<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      auto kernel = eid ? spmm_chunk_kernel<G, VW, true> : spmm_chunk_kernel<G, VW, false>;
+      kernel<<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int*>(row_ptr), static_cast<const int*>(col), static_cast<const float*>(val),
-          static_cast<const float*>(x), static_cast<float*>(out), static_cast<float*>(carry),
-          static_cast<int*>(cut_row), n_rows, nnz, d, n_chunks);
+          static_cast<const int*>(eid), seed, p, static_cast<const float*>(x), static_cast<float*>(out),
+          static_cast<float*>(carry), static_cast<int*>(cut_row), n_rows, nnz, d, n_chunks);
     });
   }
   return (int)cudaGetLastError();

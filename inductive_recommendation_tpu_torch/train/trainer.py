@@ -1,0 +1,257 @@
+"""Training loops (counterpart of ``inductive_recommendation_tpu/train/trainer.py``,
+single device, no mesh; reference trainer.py:25-253).
+
+- a step draws its batch on the device (``data/sampling.py``), runs the
+  model's forward (every sparse product through the hand-written SpMM
+  kernel, its backward through the same kernel on the transpose layouts),
+  the loss, ``backward`` and the optimizer; nothing of the batch crosses to
+  the host;
+- an epoch is ceil(len(train pairs) / batch_size) full steps, and its mean
+  loss is fetched once at the epoch's end;
+- early stopping on NDCG@topks[min(4, len - 1)] with ``max_patience``, and the
+  best checkpoint saved, replaced and reloaded at the end, as
+  trainer.py:94-112 does;
+- randomness: ``self.generator`` on the model's device seeds the initial
+  weights and the batches, ``self.host_generator`` (CPU) the dropout masks,
+  both from ``config["seed"]`` (default 0).
+
+Adam is ``torch.optim.Adam`` at its defaults (betas 0.9/0.999, eps 1e-8, no
+weight decay): the update of ``optax.adam`` at its defaults, up to fp32
+rounding.
+
+Not ported: the mesh, SGD (no ported configuration uses it),
+``eval_train_every_epoch`` and the summary writer.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from inductive_recommendation_tpu_torch.data.dataset import AuxiliaryDataset
+from inductive_recommendation_tpu_torch.data.sampling import build_sampler_state, sample_bpr_batch
+from inductive_recommendation_tpu_torch.eval.evaluator import Evaluator
+from inductive_recommendation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bpr_loss
+
+OPTIMIZERS = {"Adam": torch.optim.Adam}
+
+
+def _epoch_mean(losses) -> float:
+    """Mean of an epoch's per-step device losses, in one device-to-host copy."""
+    if not losses:
+        return 0.0
+    return float(torch.stack(losses).double().mean())
+
+
+class BasicTrainer:
+    def __init__(self, trainer_config, dataset, model):
+        self.config = dict(trainer_config)
+        self.name = trainer_config["name"]
+        self.dataset = dataset
+        self.model = model
+        self.topks = trainer_config["topks"]
+        self.n_epochs = trainer_config["n_epochs"]
+        self.max_patience = trainer_config.get("max_patience", 50)
+        self.val_interval = trainer_config.get("val_interval", 1)
+        self.batch_size = trainer_config.get("batch_size", 2048)
+        self.epoch = 0
+        self.best_ndcg = -np.inf
+        # remaining early-stop budget; persisted by save_state so that a
+        # resumed run stops where the uninterrupted one would
+        self.patience = self.max_patience
+        self.save_path = None
+        self.seed = int(trainer_config.get("seed", 0))
+        self.device = model.device
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.host_generator = torch.Generator().manual_seed(self.seed)
+        self.evaluator = Evaluator(dataset, self.topks, trainer_config.get("test_batch_size", 512), device=self.device)
+        self.params = model.init_params(self.generator)
+        self.optimizer = None
+        self.steps_per_epoch = max(1, -(-len(dataset) // self.batch_size))
+
+    # -- optimizer (trainer.py:44-46) ---------------------------------------
+    def initialize_optimizer(self):
+        opt_cls = OPTIMIZERS[self.config["optimizer"]]
+        self.optimizer = opt_cls(list(self.params.values()), lr=self.config["lr"])
+
+    # -- one step ------------------------------------------------------------
+    def loss(self) -> torch.Tensor:
+        """The loss of one freshly sampled batch, with its autograd graph."""
+        raise NotImplementedError
+
+    def step(self) -> torch.Tensor:
+        """One optimizer step; returns the batch loss as a device scalar."""
+        loss = self.loss()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def train_one_epoch(self) -> float:
+        return _epoch_mean([self.step() for _ in range(self.steps_per_epoch)])
+
+    # -- checkpoint helpers --------------------------------------------------
+    @torch.no_grad()
+    def _restore_params(self, saved):
+        for name, p in self.params.items():
+            p.copy_(saved[name])
+
+    def _save_model(self, path):
+        save_checkpoint(path, self.params, aux=self.model.checkpoint_aux())
+
+    def _load_model(self, path):
+        payload = load_checkpoint(path)
+        self._restore_params(payload["params"])
+        self.model.restore_aux(payload.get("aux", {}))
+
+    # -- full training-state resume -----------------------------------------
+    def save_state(self, path):
+        aux = dict(self.model.checkpoint_aux())
+        aux["__trainer__"] = {
+            "epoch": self.epoch,
+            "best_ndcg": float(self.best_ndcg),
+            "save_path": self.save_path or "",
+            "patience": int(self.patience),
+            "generator": self.generator.get_state(),
+            "host_generator": self.host_generator.get_state(),
+        }
+        opt_state = None if self.optimizer is None else self.optimizer.state_dict()
+        save_checkpoint(path, self.params, opt_state=opt_state, aux=aux)
+
+    def load_state(self, path):
+        payload = load_checkpoint(path)
+        self._restore_params(payload["params"])
+        if self.optimizer is not None and "opt_state" in payload:
+            self.optimizer.load_state_dict(payload["opt_state"])
+        aux = dict(payload.get("aux", {}))
+        ts = aux.pop("__trainer__", {})
+        self.model.restore_aux(aux)
+        self.epoch = int(ts.get("epoch", 0))
+        self.best_ndcg = float(ts.get("best_ndcg", -np.inf))
+        self.save_path = ts.get("save_path") or None
+        self.patience = int(ts.get("patience", self.max_patience))
+        if "generator" in ts:
+            self.generator.set_state(ts["generator"])
+            self.host_generator.set_state(ts["host_generator"])
+
+    # -- main loop (trainer.py:58-113) --------------------------------------
+    def train(self, verbose=True):
+        """Trains up to ``n_epochs`` (from ``self.epoch``, so a restored state
+        resumes), validates every ``val_interval`` epochs, keeps the best
+        checkpoint under ``checkpoints/`` in the working directory and
+        reloads it at the end. Returns the best validation NDCG."""
+        os.makedirs("checkpoints", exist_ok=True)
+        for epoch in range(self.epoch, self.n_epochs):
+            # self.epoch counts completed epochs; during one it is its index
+            self.epoch = epoch
+            start_time = time.time()
+            loss = self.train_one_epoch()
+            self.epoch = epoch + 1
+            if verbose:
+                print(
+                    "Epoch {:d}/{:d}, Loss: {:.6f}, Time: {:.3f}s".format(
+                        epoch, self.n_epochs, loss, time.time() - start_time
+                    )
+                )
+            if (epoch + 1) % self.val_interval != 0:
+                continue
+
+            start_time = time.time()
+            results, metrics = self.eval("val")
+            if verbose:
+                print("Validation result. {:s}Time: {:.3f}s".format(results, time.time() - start_time))
+            ndcg = metrics["NDCG"][self.topks[min(4, len(self.topks) - 1)]]
+            if ndcg > self.best_ndcg:
+                if self.save_path and os.path.exists(self.save_path):
+                    os.remove(self.save_path)
+                self.save_path = os.path.join(
+                    "checkpoints",
+                    "{:s}_{:s}_{:s}_{:.3f}.ckpt".format(self.model.name, self.name, self.dataset.name, ndcg * 100),
+                )
+                self.best_ndcg = ndcg
+                self._save_model(self.save_path)
+                self.patience = self.max_patience
+                if verbose:
+                    print("Best NDCG, save model to {:s}".format(self.save_path))
+            else:
+                self.patience -= self.val_interval
+                if self.patience <= 0:
+                    if verbose:
+                        print("Early stopping!")
+                    break
+
+        # a restored save_path may point at a deleted file
+        if self.save_path and os.path.exists(self.save_path):
+            self._load_model(self.save_path)
+        return self.best_ndcg
+
+    # -- evaluation (delegates; trainer.py:146-210) -------------------------
+    def eval(self, val_or_test, banned_items=None):
+        return self.evaluator.evaluate(self.model, self.params, val_or_test, banned_items=banned_items)
+
+    def inductive_eval(self, n_old_users, n_old_items):
+        return self.evaluator.inductive_eval(self.model, self.params, n_old_users, n_old_items)
+
+    def recommend(self, stage="test", banned_items=None):
+        """Top-k_max items for every user -> [n_users, k_max] numpy ('test'
+        excludes train+val history, 'val' train, anything else nothing)."""
+        return self.evaluator.recommend(self.model, self.params, stage, banned_items=banned_items)
+
+
+class BPRTrainer(BasicTrainer):
+    """BPR + L2 (trainer.py:403-429); LightGCN."""
+
+    def __init__(self, trainer_config, dataset, model):
+        super().__init__(trainer_config, dataset, model)
+        self.l2_reg = trainer_config["l2_reg"]
+        self.initialize_optimizer()
+        self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
+
+    def loss(self):
+        users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
+        u_r, p_r, n_r, l2 = self.model.bpr_forward(
+            self.params, users, pos, neg[:, 0], training=True, generator=self.host_generator
+        )
+        return bpr_loss(u_r, p_r, n_r) + self.l2_reg * l2.mean()
+
+
+class IGCNTrainer(BasicTrainer):
+    """BPR + L2 + the auxiliary BPR on the raw core embeddings weighted by the
+    model's per-dimension ``w`` (trainer.py:518-561); anneals the feature
+    matrix at the end of every epoch, before validation (trainer.py:559)."""
+
+    def __init__(self, trainer_config, dataset, model):
+        super().__init__(trainer_config, dataset, model)
+        self.l2_reg = trainer_config["l2_reg"]
+        self.aux_reg = trainer_config["aux_reg"]
+        self.initialize_optimizer()
+        self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
+        aux = AuxiliaryDataset(dataset, model.user_map, model.item_map)
+        self.aux_sampler = build_sampler_state(aux.train_data, aux.n_items, self.device)
+
+    def loss(self):
+        users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
+        a_users, a_pos, a_neg = sample_bpr_batch(self.aux_sampler, self.generator, self.batch_size)
+        u_r, p_r, n_r, l2 = self.model.bpr_forward(
+            self.params, users, pos, neg[:, 0], training=True, generator=self.host_generator
+        )
+        aux = aux_bpr_w(self.params["embedding"], self.params["w"], a_users, a_pos, a_neg[:, 0], self.model.user_dim)
+        return bpr_loss(u_r, p_r, n_r) + self.l2_reg * l2.mean() + self.aux_reg * aux
+
+    def train_one_epoch(self):
+        loss = super().train_one_epoch()
+        self.model.feat_mat_anneal()
+        return loss
+
+
+TRAINERS = {cls.__name__: cls for cls in (BasicTrainer, BPRTrainer, IGCNTrainer)}
+
+
+def get_trainer(trainer_config, dataset, model):
+    """Registry factory keyed by config['name'] (trainer.py:16-22). The
+    trainer runs on the model's device."""
+    return TRAINERS[trainer_config["name"]](trainer_config, dataset, model)

@@ -15,6 +15,8 @@ from inductive_recommendation_tpu.data.dataset import BasicDataset as JaxBasicDa
 from inductive_recommendation_tpu.data.dataset import quick_synthetic_dataset
 from inductive_recommendation_tpu_torch import get_model
 from inductive_recommendation_tpu_torch.models import params_from_jax
+from inductive_recommendation_tpu_torch.ops import edge_uniform, propagate_mean, spmm_csr_dropout_reference
+from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -124,9 +126,22 @@ def test_params_from_jax_refuses_mismatch(ds):
 def test_unported_branches_raise(ds):
     with pytest.raises(NotImplementedError, match="graph_rank_nodes"):
         get_model(_cfg("IGCN", feature_ratio=0.8), ds, device="cpu")
+    # training-time edge dropout is ported: at p 0.3 the rep differs from p 0's
+    # and is the plain chain under the mask drawn from the generator's seed,
+    # which keeps 70% of the feature edges within 4 binomial sigma
     tm = get_model(_cfg("IGCN"), ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tm.get_rep(tm.params(), training=True)
+    no_drop = get_model(_cfg("IGCN", dropout=0.0), ds, device="cpu")
+    params = tm.params()
+    with torch.no_grad():
+        rep = tm.get_rep(params, training=True, generator=torch.Generator().manual_seed(3))
+        rep_p0 = no_drop.get_rep(params, training=True, generator=torch.Generator().manual_seed(3))
+        seed = dropout_seed(torch.Generator().manual_seed(3))
+        x0 = spmm_csr_dropout_reference(tm.feat, params["embedding"][: tm.feat_n_cols], seed, 0.3)
+        plain = propagate_mean(tm.norm_adj, x0, tm.n_layers)
+    assert not torch.allclose(rep, rep_p0, **TOL)
+    np.testing.assert_allclose(rep.numpy(), plain.numpy(), **TOL)
+    keep = (edge_uniform(seed, tm.feat.eid) >= 0.3).double()
+    assert abs(keep.mean().item() - 0.7) < 4 * (0.21 / keep.numel()) ** 0.5
 
 
 def test_get_model_without_a_card_raises(ds, monkeypatch):
