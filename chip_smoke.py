@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``inductive_recommendation_tpu_torch``) on one
-CUDA card: the IGCN serving and training paths at full width, through the
-port's CUDA kernel.
+CUDA card: the IGCN serving and training paths and DOSE training at full
+width, through the port's CUDA kernel.
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
@@ -40,12 +40,31 @@ Phases, each of which raises on failure (the exit code is then not 0):
    model's, and the reloaded best checkpoint has alpha = 0.99^k and the same
    metrics. (c) One step is 16 launches (8 products). (d) Step time (single
    steps and windows of 10), examples/s, epoch seconds, and one step under
-   ``torch.profiler``.
+   ``torch.profiler``;
+8. DOSE: the grid's DOSE_aug (d 64, 3 layers, dropout 0.3, aug_num 500,000)
+   with its ``DOSEaugTrainer`` on the same set. (a) The view CSR after one
+   selection: its nnz, symmetric (equal to its transpose, values bitwise),
+   the kernel against its float64 plain version, two products bitwise
+   equal, times against ``torch.sparse.mm`` and the byte bound. (b) The
+   selection (the 500,000 lowest-cosine pairs): values sorted, pairs
+   distinct, each value its pair's cosine recomputed in float64 within 1e-5,
+   and no pair of a random sample of 1,000,000 outside the selection above
+   the k-th value by more than 1e-5; its time. (c) 2 epochs of
+   ``get_trainer``: the loss falls, val NDCG@20 rises from the first epoch
+   to the second (it is logged beside the random-init model's, which the
+   contrastive term first pulls it below), the views change between epochs,
+   and the reloaded best checkpoint's ``rebuild_views`` gives that epoch's
+   view CSR bit for bit.
+   (d) One step is 32 launches (16 products, 12 of them on the view). (e)
+   Step time, examples/s, epoch seconds, the epoch end's selection and view
+   rebuild, and one step under ``torch.profiler``. (f) DOSE_drop3 and
+   DOSE_aug_drop2 at their grid configs: one ``update_aug_adj`` and 3 steps
+   each.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
-serving path and read just after, and again around the training run of
-phase 7. The last lines are one JSON object of kernel numbers and then
-``{"ok": true, "device": {...}}``.
+serving path and read just after, and again around the training runs of
+phases 7 and 8. The last lines are one JSON object of kernel numbers and
+then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -66,6 +85,7 @@ from inductive_recommendation_tpu_torch.models import params_from_jax
 from inductive_recommendation_tpu_torch.ops import (
     CsrSpMM,
     _build,
+    blockwise_cosine_topk,
     build_csr_spmm,
     edge_uniform,
     propagate_mean,
@@ -86,6 +106,15 @@ TRAINER_CONFIG = {
     "n_epochs": 2, "val_interval": 1, "batch_size": 2048, "test_batch_size": 512,
     "topks": [1] + list(range(5, 101, 5)),
 }
+# the grid's DOSE configurations and trainer (configs/grids.py:185-245 of
+# the JAX package), DOSE_aug cut to 2 epochs as above
+DOSE_CONFIG = dict(IGCN_CONFIG, name="DOSE_aug", aug_num=500_000)
+DOSE_TRAINER_CONFIG = dict(TRAINER_CONFIG, name="DOSEaugTrainer", l2_reg=0.0, aux_reg=0.001, contrastive_reg=0.1)
+DOSE_MORE = (
+    (dict(IGCN_CONFIG, name="DOSE_drop3", aug_num=500_000, aug_rate=0.5), "DOSEdropTrainer"),
+    (dict(IGCN_CONFIG, name="DOSE_aug_drop2", aug_num=100_000), "DOSEdropTrainer"),
+)
+SELECTION_SAMPLE = 1_000_000
 TOPKS = [20]
 TEST_BATCH = 512
 N_NEW = 1000
@@ -496,12 +525,19 @@ def check_training_kernels(model, emb, rng) -> dict:
     return rows
 
 
-def train_and_check(trainer, card) -> dict:
-    """Phase 7 (b)-(d): the trainer's IGCN trained for its epochs, checked,
-    counted and timed."""
+def same_csr(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("row_ptr", "col", "val", "eid"))
+
+
+def train_and_check(trainer, card, n_products) -> dict:
+    """Phases 7 (b)-(d) and 8 (c)-(e): the trainer's model trained for its
+    epochs, checked, counted (``n_products`` SpMMs a step) and timed. A DOSE
+    model's views must change between epochs, and the reloaded checkpoint's
+    must be its epoch's, bit for bit."""
     model = trainer.model
+    dose = hasattr(model, "views")
     _, init_metrics = trainer.eval("val")
-    losses, epoch_s, val_metrics = [], [], []
+    losses, epoch_s, val_metrics, views = [], [], [], []
     train_one_epoch, evaluate = trainer.train_one_epoch, trainer.eval
 
     def recorded_epoch():
@@ -511,6 +547,8 @@ def train_and_check(trainer, card) -> dict:
         torch.cuda.synchronize()
         epoch_s.append(time.perf_counter() - t0)
         losses.append(loss)
+        if dose:
+            views.append(dict(model.views))
         return loss
 
     def recorded_eval(stage, banned_items=None):
@@ -523,7 +561,8 @@ def train_and_check(trainer, card) -> dict:
     trainer.train(verbose=True)
     launches, route_launches = spmm_csr_cuda.launches, dict(spmm_csr_cuda.route_launches)  # and ends here
     trainer.train_one_epoch, trainer.eval = train_one_epoch, evaluate
-    if min(route_launches["forward"], route_launches["forward_dropout"], route_launches["transpose_dropout"]) == 0:
+    routes = ("forward", "forward_dropout", "transpose_dropout") + (("view",) if dose else ())
+    if min(route_launches[r] for r in routes) == 0:
         raise AssertionError(f"a route of the kernel was not launched in training: {route_launches}")
 
     ndcg = [m["NDCG"][20] for m in val_metrics]
@@ -536,12 +575,26 @@ def train_and_check(trainer, card) -> dict:
     if model.alpha != alpha:
         raise AssertionError(f"reloaded alpha {model.alpha}, expected {model.delta}^{best} = {alpha}")
     _, final = trainer.eval("val")
-    if not final["NDCG"][20] > init_metrics["NDCG"][20]:
+    if dose:
+        # InfoNCE first pulls the reps away from the random-init model's
+        # ranking, which IGCN's template rows make a strong one on this set
+        # (PERF.md): DOSE's training shows as NDCG rising epoch on epoch
+        if not ndcg[1] > ndcg[0]:
+            raise AssertionError(f"val NDCG@20 by epoch {ndcg}: the second is not above the first")
+    elif not final["NDCG"][20] > init_metrics["NDCG"][20]:
         raise AssertionError(f"val NDCG@20 {final['NDCG'][20]} after training, {init_metrics['NDCG'][20]} at init")
     for name in ("Precision", "Recall", "NDCG"):
         if abs(final[name][20] - val_metrics[best - 1][name][20]) > 1e-6:
             raise AssertionError(f"the reloaded checkpoint's val {name}@20 {final[name][20]} != {val_metrics[best - 1][name][20]}")
     check_metrics(final, "val after training")
+    if dose:
+        if all(same_csr(views[0][k], views[1][k]) for k in model.views):
+            raise AssertionError("the views did not change between the epochs")
+        for k, view in model.views.items():
+            if not same_csr(view, views[best - 1][k]):
+                raise AssertionError(f"view {k} rebuilt after the reload differs from epoch {best}'s")
+        log(f"views: changed between the epochs; rebuilt after the reload equal to epoch {best}'s bit for bit "
+            f"(nnz by epoch {[{k: v.nnz for k, v in e.items()} for e in views]})")
     log(
         f"train: epoch losses {losses}; val NDCG@20 {init_metrics['NDCG'][20]:.6f} at init, {ndcg} by epoch, "
         f"{final['NDCG'][20]:.6f} after reloading epoch {best} (alpha {model.alpha}); epoch s {epoch_s}; "
@@ -554,7 +607,6 @@ def train_and_check(trainer, card) -> dict:
     trainer.step()
     torch.cuda.synchronize()
     per_step = dict(spmm_csr_cuda.route_launches)
-    n_products = 2 * (1 + model.n_layers)
     if spmm_csr_cuda.launches != 2 * n_products or per_step["transpose"] != 0:
         raise AssertionError(f"one step launched {spmm_csr_cuda.launches} ({per_step}), expected {2 * n_products}")
     log(f"one step: {spmm_csr_cuda.launches} launches for {n_products} products: {per_step}")
@@ -594,6 +646,101 @@ def train_and_check(trainer, card) -> dict:
         f"epoch {epoch_s} s"
     )
     return out
+
+
+def check_symmetric(view):
+    """The view CSR equals its transpose: the same (row, col) pairs both ways
+    round, with bitwise equal values."""
+    n = view.n_rows
+    rows, cols = view.edge_rows().long(), view.col.long()
+    key, key_t = rows * n + cols, cols * n + rows
+    order, order_t = torch.argsort(key), torch.argsort(key_t)
+    if not (torch.equal(key[order], key_t[order_t]) and torch.equal(view.val[order], view.val[order_t])):
+        raise AssertionError("the view CSR is not symmetric")
+
+
+def check_selection(model, params, rng) -> dict:
+    """Phase 8 (b): DOSE_aug's selection on the card against float64
+    cosines, and its time."""
+    k = model.aug_num
+    with torch.no_grad():
+        rep = model.get_rep(params, training=False)
+    users_r, items_r = rep[: model.n_users], rep[model.n_users :]
+    vals, uid, iid = blockwise_cosine_topk(users_r, items_r, k, negate_items=True)
+    uid, iid = uid.long(), iid.long()
+    if vals.shape != (k,) or not torch.isfinite(vals).all() or (torch.diff(vals) > 0).any():
+        raise AssertionError("the selected values are not k finite values in descending order")
+    keys = uid * model.n_items + iid
+    if torch.unique(keys).numel() != k:
+        raise AssertionError("the selection holds a pair twice")
+    un = users_r.double() / users_r.double().norm(dim=1, keepdim=True).clamp_min(1e-12)
+    itn = -items_r.double() / items_r.double().norm(dim=1, keepdim=True).clamp_min(1e-12)
+    cos_err = ((un[uid] * itn[iid]).sum(1) - vals.double()).abs().max().item()
+    if cos_err > 1e-5:
+        raise AssertionError(f"a selected value is {cos_err} from its pair's float64 cosine")
+    g = torch.Generator(device=rep.device).manual_seed(int(rng.integers(0, 2**62)))
+    su = torch.randint(0, model.n_users, (SELECTION_SAMPLE,), generator=g, device=rep.device)
+    si = torch.randint(0, model.n_items, (SELECTION_SAMPLE,), generator=g, device=rep.device)
+    outside = ~torch.isin(su * model.n_items + si, keys)
+    sample_max = (un[su[outside]] * itn[si[outside]]).sum(1).max().item()
+    kth = vals[-1].item()
+    if sample_max > kth + 1e-5:
+        raise AssertionError(f"a pair outside the selection has cos {sample_max} above the k-th value {kth}")
+    ms = host_ms(lambda: blockwise_cosine_topk(users_r, items_r, k, negate_items=True), 3)
+    out = {"k": k, "kth_value": kth, "max_cos_err_float64": cos_err, "sample_max_outside": sample_max,
+           "sample_outside": int(outside.sum()), "selection_ms": ms, "panels": -(-model.n_users // 512)}
+    log(f"selection: {k} lowest-cosine pairs of {model.n_users} x {model.n_items}, sorted and distinct; k-th value "
+        f"{kth:.6f}; max |value - float64 cos| {cos_err:.3g}; max over {out['sample_outside']} sampled pairs outside "
+        f"it {sample_max:.6f}; {ms} ms ({out['panels']} panels of 512 users)")
+    return out
+
+
+def dose_phase(ds, card, rng) -> dict:
+    """Phase 8: DOSE_aug's view CSR, selection and training, then DOSE_drop3
+    and DOSE_aug_drop2."""
+    trainer = get_trainer(DOSE_TRAINER_CONFIG, ds, get_model(DOSE_CONFIG, ds))
+    model, params = trainer.model, trainer.params
+
+    # (b) the selection, then (a) the view it makes; the model keeps its
+    # initial view, so that the training run below is a fresh one
+    selection = check_selection(model, params, rng)
+    view = model.view_engine.make_view_on_device(add_pairs=model._cos_pairs(params, model.aug_num, True))
+    check_symmetric(view)
+    with torch.no_grad():
+        x = model.inductive_rep_layer(params)
+        view_row = measure_spmm("view", view, x)
+    log(f"view CSR: {view.shape} nnz {view.nnz} (adjacency {model.norm_adj.nnz} + 2 x "
+        f"{(view.nnz - model.norm_adj.nnz) // 2} injected), symmetric, values bitwise equal both ways")
+
+    # (c)-(e) training, launches a step, times
+    n_products = 2 * (2 + 2 * model.n_layers)
+    train = train_and_check(trainer, card, n_products=n_products)
+    if train["launches_per_step"]["view"] != 4 * model.n_layers:
+        raise AssertionError(f"one step launched {train['launches_per_step']} on the view, expected {4 * model.n_layers}")
+    params = trainer.params
+    pairs = model._cos_pairs(params, model.aug_num, True)
+    epoch_end = {
+        "anneal_ms": host_ms(model.feat_mat_anneal, 1),
+        "selection_ms": host_ms(lambda: model._cos_pairs(params, model.aug_num, True), 3),
+        "view_build_ms": host_ms(lambda: model.view_engine.make_view_on_device(add_pairs=pairs), 3),
+        "update_aug_adj_ms": host_ms(lambda: model.update_aug_adj(params), 3),
+    }
+    log(f"epoch end on {card}: {json.dumps(epoch_end)}")
+
+    # (f) the other grid variants: one update and 3 steps each
+    more = {}
+    for config, trainer_name in DOSE_MORE:
+        t = get_trainer(dict(DOSE_TRAINER_CONFIG, name=trainer_name), ds, get_model(config, ds))
+        update_ms = host_ms(lambda: t.model.update_aug_adj(t.params), 1)[0]
+        step_losses = [t.step().item() for _ in range(3)]
+        if not np.isfinite(step_losses).all():
+            raise AssertionError(f"{config['name']}: step losses {step_losses}")
+        nnz = {k: v.nnz for k, v in t.model.views.items()}
+        more[config["name"]] = {"update_aug_adj_ms": update_ms, "step_losses": step_losses, "view_nnz": nnz}
+        log(f"{config['name']}: update_aug_adj {update_ms:.1f} ms, views nnz {nnz} (adjacency "
+            f"{t.model.norm_adj.nnz}), 3 steps, losses {step_losses}")
+        del t
+    return {"train": train, "selection": selection, "view_row": view_row, "epoch_end": epoch_end, "more": more}
 
 
 def main():
@@ -727,7 +874,7 @@ def main():
         trainer.model, trainer.params["embedding"][: trainer.model.feat_n_cols].detach(), rng
     )
     max_err = max(max_err, *(train_rows[k]["max_abs_err"] for k in ("transpose", "transpose_dropout", "dropout")))
-    train = train_and_check(trainer, card)
+    train = train_and_check(trainer, card, n_products=2 * (1 + IGCN_CONFIG["n_layers"]))
     log("train: " + json.dumps(train))
 
     # one get_rep = 1 product with the feature matrix + n_layers with the adjacency
@@ -790,7 +937,19 @@ def main():
         [train_rows["dropout"]],
     )
     transpose["grad_max_abs_err"] = train_rows["grad_err"]
-    print(json.dumps({"kernels": [kernel, transpose, dropout]}))
+
+    # 8. DOSE on the same set
+    dose = dose_phase(ds, card, rng)
+    log("dose: " + json.dumps({k: v for k, v in dose.items() if k != "view_row"}))
+    max_err = max(max_err, dose["view_row"]["max_abs_err"])
+    dose_routes = dose["train"]["route_launches_train_run"]
+    view = entry(
+        "spmm_csr_view", dose["view_row"], dose_routes["view"], dose["train"]["launches_per_step"]["view"],
+        f"one product with a DOSE_aug view CSR (the train graph plus the {DOSE_CONFIG['aug_num']} selected pairs, "
+        "symmetric: forward and backward on the same layout); launches: DOSE_aug's training run, on the view",
+        [dose["view_row"]],
+    )
+    print(json.dumps({"kernels": [kernel, transpose, dropout, view]}))
     print(
         json.dumps(
             {

@@ -21,11 +21,13 @@ run on the CUDA card unless the caller passes ``device="cpu"``:
     trainer.train()                        # writes checkpoints/ in the working directory
     results, metrics = trainer.eval("test")
 
-Ported so far: the serving path (datasets, graph builders, LightGCN/IGCN/IMF
-representations, full-catalog and inductive evaluation) and the training
-path (the BPR sampler, the losses, BasicTrainer/BPRTrainer/IGCNTrainer with
-Adam, early stopping and checkpoints), whose backward runs the same kernel
-on the transpose layouts.
+Ported so far: the serving path (datasets, graph builders, node rankings,
+LightGCN/IGCN/IMF representations, full-catalog and inductive evaluation),
+the training path (the BPR sampler, the losses, BasicTrainer/BPRTrainer/
+IGCNTrainer with Adam, early stopping and checkpoints), whose backward runs
+the same kernel on the transpose layouts, and the DOSE family (12 of its 13
+variants, their contrastive views as symmetric CSRs rebuilt on the device at
+every epoch end, the cosine top-k selection, InfoNCE and the DOSE trainers).
 """
 
 __version__ = "0.1.0"

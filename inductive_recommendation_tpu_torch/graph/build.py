@@ -9,6 +9,7 @@ Reference semantics reproduced:
 - D^-1/2 A D^-1/2 with degree clamped >= 1          model.py:89-98
 - self-loop + row-L1 norm (NGCF)                    model.py:4008-4014
 - IGCN template feature matrix + degree row powers  model.py:4139-4175
+- train ∪ injected pairs (DOSE views, rankings)     utils.py:71-88
 """
 
 from __future__ import annotations
@@ -52,6 +53,17 @@ def sym_normalized_adjacency(train_array: np.ndarray, n_users: int, n_items: int
     val = sym_normalize_values(row, col, n, counts.astype(np.float32))
     order = np.argsort(row, kind="stable")
     return row[order], col[order], val[order]
+
+
+def aug_union_edges(train_array: np.ndarray, aug_idx: np.ndarray) -> np.ndarray:
+    """train ∪ injected (u, i) pairs, deduplicated, sorted by key
+    (utils.py:71-88)."""
+    train_array = np.asarray(train_array, dtype=np.int64).reshape(-1, 2)
+    aug_idx = np.asarray(aug_idx, dtype=np.int64).reshape(-1, 2)
+    n = int(max(train_array[:, 1].max(initial=0), aug_idx[:, 1].max(initial=0))) + 1
+    keys = np.concatenate([train_array[:, 0] * n + train_array[:, 1], aug_idx[:, 0] * n + aug_idx[:, 1]])
+    uniq = np.unique(keys)
+    return np.stack([uniq // n, uniq % n], axis=1)
 
 
 def row_l1_normalize_values(row, col, n_nodes: int, counts=None):

@@ -14,9 +14,6 @@ product. A ``get_rep`` runs 1 + n_layers SpMMs, and its backward as many on
 the transpose layouts. In training the feature-matrix product drops edges in
 the kernel, from a hash of the edge id (``ops.csr_spmm.spmm_csr_dropout``;
 reference model.py:4189 via NGCF.dropout_sp_mat).
-
-Not ported yet: ``feature_ratio < 1`` (it needs
-``graph/ranking.py::graph_rank_nodes``).
 """
 
 from __future__ import annotations
@@ -25,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from inductive_recommendation_tpu_torch.graph import build_feat_matrix
+from inductive_recommendation_tpu_torch.graph import build_feat_matrix, graph_rank_nodes
 from inductive_recommendation_tpu_torch.models.base import BasicModel, l2_sq_rows
 from inductive_recommendation_tpu_torch.models.lightgcn import build_norm_adj
 from inductive_recommendation_tpu_torch.ops import (
@@ -38,15 +35,20 @@ from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed, spmm_c
 
 
 def select_core(dataset, feature_ratio, ranking_metric):
-    """Core (template) user/item selection (model.py:4141-4148) as dense
-    -1-padded map arrays. Only ``feature_ratio >= 1`` (every node is core, as
-    in every IGCN grid entry) is ported."""
+    """Core (template) user/item selection: the top ``feature_ratio`` of the
+    node ranking (model.py:4141-4148), as dense -1-padded map arrays."""
+    n_users, n_items = dataset.n_users, dataset.n_items
     if feature_ratio < 1.0:
-        raise NotImplementedError(
-            "feature_ratio < 1 needs graph_rank_nodes (graph/ranking.py), not ported yet"
-        )
-    user_map = np.arange(dataset.n_users, dtype=np.int64)
-    item_map = np.arange(dataset.n_items, dtype=np.int64)
+        ranked_users, ranked_items = graph_rank_nodes(dataset, ranking_metric)
+        core_users = ranked_users[: int(n_users * feature_ratio)]
+        core_items = ranked_items[: int(n_items * feature_ratio)]
+    else:
+        core_users = np.arange(n_users, dtype=np.int64)
+        core_items = np.arange(n_items, dtype=np.int64)
+    user_map = np.full(n_users, -1, dtype=np.int64)
+    user_map[core_users] = np.arange(len(core_users))
+    item_map = np.full(n_items, -1, dtype=np.int64)
+    item_map[core_items] = np.arange(len(core_items))
     return user_map, item_map
 
 

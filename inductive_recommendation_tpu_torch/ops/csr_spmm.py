@@ -44,10 +44,12 @@ EDGES_PER_CHUNK = 192
 class CsrSpMM:
     """Row-sorted CSR of a sparse ``[n_rows, n_cols]`` matrix on one device.
 
-    ``symmetric=True`` asserts A == A^T (the sym-normalized adjacency); a
-    per-edge scale or dropout is then refused, since (A o S)^T != A o S in
-    general. Otherwise ``transpose`` holds A^T (``transposed=True`` there),
-    or None for a layout built by hand, which then has no backward."""
+    ``symmetric=True`` asserts A == A^T (the sym-normalized adjacency, a
+    DOSE view); a per-edge scale or dropout is then refused, since
+    (A o S)^T != A o S in general. Otherwise ``transpose`` holds A^T
+    (``transposed=True`` there), or None for a layout built by hand, which
+    then has no backward. ``view=True`` marks a per-epoch DOSE view
+    (``graph/views.py``), whose launches are counted apart."""
 
     row_ptr: torch.Tensor  # int32 [n_rows + 1]
     col: torch.Tensor  # int32 [nnz]
@@ -58,6 +60,7 @@ class CsrSpMM:
     symmetric: bool = False
     transpose: CsrSpMM | None = None
     transposed: bool = False
+    view: bool = False
 
     @property
     def shape(self):
@@ -216,7 +219,8 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
     one launch otherwise. ``spmm_csr_cuda.launches`` counts the launches of
     both kernels, and ``spmm_csr_cuda.route_launches`` the same launches by
     layout side and dropout (``forward``, ``transpose``, ``forward_dropout``,
-    ``transpose_dropout``). Raises on anything the kernels do not take."""
+    ``transpose_dropout``, and ``view`` for a DOSE view, forward and backward
+    alike). Raises on anything the kernels do not take."""
     val = mat.val if val is None else val
     tensors = {"row_ptr": mat.row_ptr, "col": mat.col, "val": val, "x": x}
     if drop is not None:
@@ -251,7 +255,10 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
         carry = torch.empty(chunks, 2, d, dtype=torch.float32, device=x.device)
         cut_row = torch.empty(chunks, dtype=torch.int32, device=x.device)
     seed, p = (0, 0.0) if drop is None else drop
-    route = ("transpose" if mat.transposed else "forward") + ("" if drop is None else "_dropout")
+    if mat.view:
+        route = "view"
+    else:
+        route = ("transpose" if mat.transposed else "forward") + ("" if drop is None else "_dropout")
     lib = _build.load("spmm_csr")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -282,7 +289,7 @@ def reset_launch_counts():
     """Set ``spmm_csr_cuda.launches`` and every route's count to 0."""
     spmm_csr_cuda.launches = 0
     spmm_csr_cuda.route_launches = dict.fromkeys(
-        ("forward", "transpose", "forward_dropout", "transpose_dropout"), 0
+        ("forward", "transpose", "forward_dropout", "transpose_dropout", "view"), 0
     )
 
 

@@ -1,10 +1,13 @@
-"""BPR losses (counterpart of ``inductive_recommendation_tpu/train/losses.py``):
-softplus(neg_score - pos_score), reference trainer.py:278,422."""
+"""Losses (counterpart of ``inductive_recommendation_tpu/train/losses.py``):
+BPR, softplus(neg_score - pos_score) (reference trainer.py:278,422), and
+InfoNCE with unpaired negatives, the ``info-nce-pytorch`` semantics the
+reference uses for DOSE (model.py:14, ``InfoNCE(negative_mode='unpaired')``,
+temperature 0.1)."""
 
 from __future__ import annotations
 
 import torch
-from torch.nn.functional import softplus
+from torch.nn.functional import log_softmax, softplus
 
 
 def bpr_loss(users_r, pos_r, neg_r) -> torch.Tensor:
@@ -23,3 +26,21 @@ def aux_bpr_w(emb, w, a_users, a_pos, a_neg, user_dim) -> torch.Tensor:
     pos_s = (au * ap * w[None, :]).sum(dim=1)
     neg_s = (au * an * w[None, :]).sum(dim=1)
     return softplus(neg_s - pos_s).mean()
+
+
+def _l2n(x, eps=1e-12):
+    """Rows over their L2 norm, with the clamp under the square root: all-zero
+    rows (a user isolated by a drop view) get a zero row and a finite
+    gradient."""
+    sq = (x * x).sum(dim=-1, keepdim=True)
+    return x / torch.sqrt(torch.clamp(sq, min=eps * eps))
+
+
+def info_nce(query, positive_key, negative_keys, temperature: float = 0.1) -> torch.Tensor:
+    """Per-sample InfoNCE with unpaired negatives: all rows normalized, the
+    logits [q·p, q·N^T] / t, cross-entropy with the positive at index 0.
+    Returns [B] losses; the trainers take their mean (trainer.py:289)."""
+    q, p, n = _l2n(query), _l2n(positive_key), _l2n(negative_keys)
+    pos_logit = (q * p).sum(dim=-1, keepdim=True)  # [B, 1]
+    logits = torch.cat([pos_logit, q @ n.T], dim=1) / temperature
+    return -log_softmax(logits, dim=1)[:, 0]

@@ -107,6 +107,14 @@ class BasicTrainer:
         payload = load_checkpoint(path)
         self._restore_params(payload["params"])
         self.model.restore_aux(payload.get("aux", {}))
+        self._rebuild_model_views()
+
+    def _rebuild_model_views(self):
+        """DOSE models regenerate their views from the restored params and
+        counters (trainer.py:188-199 of the JAX package); other models have
+        no such hook."""
+        if hasattr(self.model, "rebuild_views"):
+            self.model.rebuild_views(self.params)
 
     # -- full training-state resume -----------------------------------------
     def save_state(self, path):
@@ -130,6 +138,7 @@ class BasicTrainer:
         aux = dict(payload.get("aux", {}))
         ts = aux.pop("__trainer__", {})
         self.model.restore_aux(aux)
+        self._rebuild_model_views()
         self.epoch = int(ts.get("epoch", 0))
         self.best_ndcg = float(ts.get("best_ndcg", -np.inf))
         self.save_path = ts.get("save_path") or None
@@ -222,7 +231,10 @@ class BPRTrainer(BasicTrainer):
 class IGCNTrainer(BasicTrainer):
     """BPR + L2 + the auxiliary BPR on the raw core embeddings weighted by the
     model's per-dimension ``w`` (trainer.py:518-561); anneals the feature
-    matrix at the end of every epoch, before validation (trainer.py:559)."""
+    matrix at the end of every epoch, before validation (trainer.py:559).
+    A model whose ``bpr_forward`` returns a fifth, contrastive term (the
+    reference pairs DOSE_drop2 with this trainer, config.py:146-151) trains
+    without it, as in the JAX package."""
 
     def __init__(self, trainer_config, dataset, model):
         super().__init__(trainer_config, dataset, model)
@@ -236,10 +248,14 @@ class IGCNTrainer(BasicTrainer):
     def loss(self):
         users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
         a_users, a_pos, a_neg = sample_bpr_batch(self.aux_sampler, self.generator, self.batch_size)
-        u_r, p_r, n_r, l2 = self.model.bpr_forward(
+        out = self.model.bpr_forward(
             self.params, users, pos, neg[:, 0], training=True, generator=self.host_generator
         )
         aux = aux_bpr_w(self.params["embedding"], self.params["w"], a_users, a_pos, a_neg[:, 0], self.model.user_dim)
+        return self._objective(out, aux)
+
+    def _objective(self, out, aux):
+        u_r, p_r, n_r, l2 = out[:4]
         return bpr_loss(u_r, p_r, n_r) + self.l2_reg * l2.mean() + self.aux_reg * aux
 
     def train_one_epoch(self):
@@ -248,7 +264,38 @@ class IGCNTrainer(BasicTrainer):
         return loss
 
 
-TRAINERS = {cls.__name__: cls for cls in (BasicTrainer, BPRTrainer, IGCNTrainer)}
+class DOSEaugTrainer(IGCNTrainer):
+    """IGCN's loss + ``contrastive_reg`` times the mean of the model's
+    contrastive term (trainer.py:255-306); the epoch ends with the anneal and
+    then the views' regeneration from the current params, in that order
+    (trainer.py:298-299)."""
+
+    def __init__(self, trainer_config, dataset, model):
+        super().__init__(trainer_config, dataset, model)
+        self.contrastive_reg = trainer_config["contrastive_reg"]
+
+    def _objective(self, out, aux):
+        return super()._objective(out, aux) + self.contrastive_reg * out[4].mean()
+
+    def train_one_epoch(self):
+        loss = super().train_one_epoch()
+        self.model.update_aug_adj(self.params)
+        return loss
+
+
+class DOSEdropTrainer(DOSEaugTrainer):
+    """The same loss and epoch end (trainer.py:307-353)."""
+
+
+class DOSEtestTrainer(DOSEaugTrainer):
+    """The same loss and epoch end (trainer.py:355-402); its DOSE_test model
+    returns the view's user reps in the contrastive slot."""
+
+
+TRAINERS = {
+    cls.__name__: cls
+    for cls in (BasicTrainer, BPRTrainer, IGCNTrainer, DOSEaugTrainer, DOSEdropTrainer, DOSEtestTrainer)
+}
 
 
 def get_trainer(trainer_config, dataset, model):

@@ -60,6 +60,18 @@ def test_get_rep_matches_jax(ds, name):
     np.testing.assert_allclose(_rep(tm, tp), np.asarray(jm.get_rep(jp)), **TOL)
 
 
+@pytest.mark.parametrize("metric", ["degree", "sort", "page_rank"])
+def test_select_core_feature_ratio_matches_jax(ds, metric):
+    """IGCN at feature_ratio 0.8: the core maps of each ranking equal JAX's,
+    the non-core nodes map to -1, and the representations agree."""
+    jm, jp, tm, tp = _pair(_cfg("IGCN", feature_ratio=0.8, ranking_metric=metric), ds)
+    np.testing.assert_array_equal(tm.user_map, jm.user_map)
+    np.testing.assert_array_equal(tm.item_map, jm.item_map)
+    assert (tm.user_map == -1).sum() == ds.n_users - int(ds.n_users * 0.8)
+    assert tm.feat_n_cols == jm.feat_n_cols == tm.user_dim + tm.item_dim + 2
+    np.testing.assert_allclose(_rep(tm, tp), np.asarray(jm.get_rep(jp)), **TOL)
+
+
 def test_attach_dataset_matches_jax():
     """The retrain-free cold start of tests/test_igcn.py: 5 new users and 4 new
     items join after training; the trained table is kept."""
@@ -124,8 +136,12 @@ def test_params_from_jax_refuses_mismatch(ds):
 
 
 def test_unported_branches_raise(ds):
-    with pytest.raises(NotImplementedError, match="graph_rank_nodes"):
-        get_model(_cfg("IGCN", feature_ratio=0.8), ds, device="cpu")
+    # feature_ratio < 1 is ported (graph/ranking.py): the core maps are JAX's
+    jm = jax_get_model(_cfg("IGCN", feature_ratio=0.8), ds)
+    tm = get_model(_cfg("IGCN", feature_ratio=0.8), ds, device="cpu")
+    np.testing.assert_array_equal(tm.user_map, jm.user_map)
+    np.testing.assert_array_equal(tm.item_map, jm.item_map)
+    assert (tm.user_dim, tm.item_dim) == (int(ds.n_users * 0.8), int(ds.n_items * 0.8))
     # training-time edge dropout is ported: at p 0.3 the rep differs from p 0's
     # and is the plain chain under the mask drawn from the generator's seed,
     # which keeps 70% of the feature edges within 4 binomial sigma
