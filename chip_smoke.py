@@ -12,7 +12,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
 2. build: compiles every CUDA source of the port (``ops/csrc/*.cu``);
 3. kernel: the SpMM kernel against its plain PyTorch version on the card (the
    plain version evaluated in float64, so that the error measured is the
-   kernel's own fp32 rounding), on
+   kernel's own fp32 rounding, each entry within the worst-case rounding
+   error of the kernel's order of sums, ``check_product``), on
    small edge cases (empty and trailing empty rows, a row over many edge
    chunks, rows cut exactly at chunk boundaries, the 16-byte path and the
    general one) and on the Gowalla-scale adjacency and IGCN feature matrix,
@@ -59,26 +60,48 @@ Phases, each of which raises on failure (the exit code is then not 0):
    Step time, examples/s, epoch seconds, the epoch end's selection and view
    rebuild, and one step under ``torch.profiler``. (f) DOSE_drop3 and
    DOSE_aug_drop2 at their grid configs: one ``update_aug_adj`` and 3 steps
-   each.
+   each;
+9. zoo: the Gowalla grid's baselines (``configs/grids.py``) at full width on
+   the same set, the dataset swapped for it and the epochs cut. (a) The
+   kernel's new uses against their plain versions in float64: NGCF's A + I
+   forward and transpose under dropout (the kept edges exactly
+   ``edge_uniform``'s), IMCGAE's operand padded to d = 68 (its pad column
+   exactly 0 after propagation), IDCF's rectangular 0/1 ``feat``, ItemKNN's
+   R^T block product at d = 512 and its whole S^T @ P at d = 512 (the plain
+   version block of rows by block of rows); an NGCF gradient stays finite
+   when an isolated node's self-loop is dropped.
+   (b) MF, NGCF and IMCGAE with ``BPRTrainer``, IDCF_LGCN with
+   ``IDCFTrainer`` over a LightGCN trained one epoch and saved with
+   ``save_checkpoint``: one epoch (438 steps) and one ``evaluate`` each;
+   MultiVAE with ``MLTrainer`` (one epoch of 59 steps); NeuMF with
+   ``BCETrainer`` (neg_ratio 4) through its three phases, one epoch each;
+   ItemKNN (k 1,000: build, ``evaluate``) and Popularity (``evaluate``).
+   Each: the loss finite and falling within the epoch, metrics equal to the
+   host oracle's, SpMM launches a step by route (NGCF 12, IMCGAE 12, IDCF 14,
+   the others 0), step ms (single and windowed), examples/s, one profiled
+   step, epoch s, ``evaluate`` ms and users/s.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
 serving path and read just after, and again around the training runs of
-phases 7 and 8. The last lines are one JSON object of kernel numbers and
-then ``{"ok": true, "device": {...}}``.
+phases 7 and 8 and each model's run in phase 9. The last lines are one JSON
+object of kernel numbers and then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from inductive_recommendation_tpu_torch import get_model, get_trainer
+from inductive_recommendation_tpu_torch.configs import get_gowalla_config
 from inductive_recommendation_tpu_torch.data import BasicDataset, quick_synthetic_dataset
 from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
 from inductive_recommendation_tpu_torch.models import params_from_jax
@@ -95,6 +118,8 @@ from inductive_recommendation_tpu_torch.ops import (
     spmm_csr_reference,
 )
 from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values, reset_launch_counts
+from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
+from inductive_recommendation_tpu_torch.utils.profiles import dense_profiles
 
 SEED = 0
 N_USERS, N_ITEMS, N_INTER = 29858, 40981, 1_200_000  # Gowalla-scale synthetic set
@@ -115,6 +140,17 @@ DOSE_MORE = (
     (dict(IGCN_CONFIG, name="DOSE_aug_drop2", aug_num=100_000), "DOSEdropTrainer"),
 )
 SELECTION_SAMPLE = 1_000_000
+# the plain version runs block of rows by block of rows, each block's float64
+# gathers within this many bytes (ItemKNN's whole S^T @ P at d 512 in one
+# pass would gather about 170 GB)
+PLAIN_BLOCK_BYTES = 2**32
+# SpMM launches a training step, by route, of each phase 9 model
+ZOO_LAUNCHES = {
+    "MF": {}, "MultiVAE": {}, "NeuMF": {},
+    "NGCF": {"forward_dropout": 6, "transpose_dropout": 6},
+    "IMCGAE": {"forward": 12},
+    "IDCF_LGCN": {"forward": 14},
+}
 TOPKS = [20]
 TEST_BATCH = 512
 N_NEW = 1000
@@ -127,6 +163,7 @@ FP32_FLOPS = 67e12
 # published table has no int32 rate, so this term is a lower bound
 PHILOX_OPS_PER_EDGE = 100
 REL_TOL = 1e-5
+U_FP32 = 2.0**-24  # fp32's unit roundoff
 
 
 def log(*args):
@@ -231,7 +268,9 @@ def device_breakdown(fn, top=8):
 
 
 def close(out, ref, what) -> float:
-    """max |out - ref|; raises unless it is <= REL_TOL * max(1, max |ref|)."""
+    """max |out - ref|; raises unless it is <= REL_TOL * max(1, max |ref|).
+    For chains of products and gradients; one product is held entry by entry
+    (:func:`check_product`)."""
     err = (out - ref).abs().max().item() if out.numel() else 0.0
     scale = max(1.0, ref.abs().max().item() if ref.numel() else 0.0)
     if not err <= REL_TOL * scale:
@@ -253,13 +292,97 @@ def rows_of_degrees(degrees) -> np.ndarray:
     return np.repeat(np.arange(len(degrees)), degrees)
 
 
+def row_block(mat, r0, r1) -> CsrSpMM:
+    """Rows [r0, r1) of ``mat`` as a CSR of their own; the edge ids go along,
+    so a dropout seed drops the same edges there."""
+    s, e = (int(v) for v in mat.row_ptr[[r0, r1]].tolist())
+    return CsrSpMM(row_ptr=mat.row_ptr[r0 : r1 + 1] - s, col=mat.col[s:e], val=mat.val[s:e], eid=mat.eid[s:e],
+                   n_rows=r1 - r0, n_cols=mat.n_cols)
+
+
+def row_blocks(mat, d) -> list[tuple[int, int, CsrSpMM]]:
+    """``mat`` cut into blocks of consecutive rows, [(r0, r1, block)], whose
+    float64 gathers at width ``d`` stay within PLAIN_BLOCK_BYTES (a longer
+    row is a block of its own)."""
+    row_ptr = mat.row_ptr.cpu().numpy().astype(np.int64)
+    max_edges = max(1, PLAIN_BLOCK_BYTES // (8 * d))
+    bounds = [0]
+    while bounds[-1] < mat.n_rows:
+        r0 = bounds[-1]
+        r1 = int(np.searchsorted(row_ptr, row_ptr[r0] + max_edges, side="right")) - 1
+        bounds.append(min(mat.n_rows, max(r0 + 1, r1)))
+    return [(r0, r1, row_block(mat, r0, r1)) for r0, r1 in zip(bounds, bounds[1:])]
+
+
+def plain_product(blocks, x, drop=None, magnitude=False) -> torch.Tensor:
+    """The plain version of the product over ``blocks`` (:func:`row_blocks`),
+    block by block, under the edge dropout ``drop`` = (seed, p) when given;
+    with ``magnitude``, |A| @ |x| under the same mask."""
+    xs = x.abs() if magnitude else x
+    outs = []
+    for _, _, m in blocks:
+        val = m.val.abs() if magnitude else m.val
+        if drop is not None:
+            val = dropout_values(val, m.eid, *drop)
+        outs.append(spmm_csr_reference(m.row_ptr, m.col, val, xs))
+    return torch.cat(outs)
+
+
+def check_product(what, blocks, x, out, drop=None, other=None) -> dict:
+    """Holds the kernel's ``out`` = A @ ``x`` (under ``drop``) against the
+    plain version in float64, block of rows by block of rows, entry by entry:
+
+        |out - plain| <= gamma(h_r) * (|A| @ |x|),  gamma(h) = h u / (1 - h u),  u = 2^-24,
+
+    the worst-case rounding error of a sum whose every term passes through at
+    most h_r roundings (Higham, Accuracy and Stability of Numerical
+    Algorithms, 2nd ed., section 4.2). The kernel rounds a term of row r at
+    most min(deg_r, E) times in its chunk's fmas (E = EDGES_PER_CHUNK), 5 in
+    the lanes' shuffle adds and deg_r // E + 1 in the carry adds: h_r =
+    min(deg_r, E) + deg_r // E + 8, 2 to spare. A row whose only edges have x
+    = 0 (IMCGAE's pad column) must come out exactly 0. A wrong or lost edge
+    moves an entry by one term, about 1/deg_r of (|A| @ |x|): the check sees
+    it while deg_r * gamma(h_r) < 1 (``limit_over_mean_term``). Raises on the
+    first block past its limit. -> max abs err and max err / limit of
+    ``out`` (and of ``other``, another result of the same product, such as
+    ``torch.sparse.mm``'s, which is only reported)."""
+    x64 = x.double()
+    res = {"max_abs_err": 0.0, "max_err_over_limit": 0.0, "limit_over_mean_term": 0.0}
+    if other is not None:
+        res.update(other_max_abs_err=0.0, other_max_err_over_limit=0.0)
+    for r0, r1, m in blocks:
+        ref = plain_product([(r0, r1, m)], x64, drop)
+        deg = torch.diff(m.row_ptr).double()[:, None]
+        h = torch.clamp(deg, max=EDGES_PER_CHUNK) + torch.div(deg, EDGES_PER_CHUNK, rounding_mode="floor") + 8
+        gamma = h * U_FP32 / (1.0 - h * U_FP32)
+        limit = gamma * plain_product([(r0, r1, m)], x64, drop, magnitude=True)
+        res["limit_over_mean_term"] = max(res["limit_over_mean_term"], (deg * gamma).max().item())
+        for key, o in (("", out), ("other_", other)):
+            if o is None:
+                continue
+            err = (o[r0:r1].double() - ref).abs()
+            if err.numel():
+                ratio = err / limit  # inf for an error where the limit is 0
+                ratio[(err == 0) & (limit == 0)] = 0.0
+                res[f"{key}max_abs_err"] = max(res[f"{key}max_abs_err"], err.max().item())
+                res[f"{key}max_err_over_limit"] = max(res[f"{key}max_err_over_limit"], ratio.max().item())
+                if not key and not bool((err <= limit).all()):
+                    i = int(torch.argmax(torch.nan_to_num(ratio, nan=torch.inf)))
+                    r, j = r0 + i // err.shape[1], i % err.shape[1]
+                    raise AssertionError(
+                        f"{what}: entry ({r}, {j}) err {err.flatten()[i].item()} > its limit "
+                        f"{limit.flatten()[i].item()} (row degree {int(deg[i // err.shape[1]])})"
+                    )
+    return res
+
+
 def check_kernel_edge_cases(rng) -> float:
     """Empty rows (between, leading and trailing), one row, no edges, a row over
     many chunks, rows of up to three chunks, rows cut exactly at chunk
     boundaries, rows not a multiple of the block; widths of the 16-byte path
-    (d % 4 == 0) and of the general one (d = 37, and d = 64 with x off 16-byte
-    alignment)."""
-    worst = 0.0
+    (d % 4 == 0, up to IMCGAE's 68 and ItemKNN's 512) and of the general one
+    (d = 37, and d = 64 with x off 16-byte alignment)."""
+    worst = worst_ratio = 0.0
     cases = []
     n_rows, n_cols, nnz = 1003, 517, 6000
     row = rng.integers(0, n_rows // 2, nnz) * 2  # odd rows stay empty
@@ -279,15 +402,17 @@ def check_kernel_edge_cases(rng) -> float:
     for name, row, col, shape in cases:
         col = rng.integers(0, shape[1], len(row)) if col is None else col
         mat = build_csr_spmm(row, col, rng.standard_normal(len(row)) + 0.1, shape, device="cuda")
-        for d, aligned in ((16, True), (48, True), (64, True), (100, True), (200, True), (37, False), (64, False)):
+        for d, aligned in ((16, True), (48, True), (64, True), (68, True), (100, True), (200, True), (512, True),
+                           (37, False), (64, False)):
             x = torch.as_tensor(rng.standard_normal((shape[1], d)), dtype=torch.float32, device="cuda")
             if not aligned:  # the same values 4 bytes past an aligned start
                 x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
-            ref = spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x.double())
             out = spmm_csr_cuda(mat, x)
             torch.cuda.synchronize()
-            worst = max(worst, close(out, ref, f"{name} d={d} aligned={aligned}"))
-    log(f"kernel edge cases: ok, max abs err {worst:.3g}")
+            res = check_product(f"{name} d={d} aligned={aligned}", row_blocks(mat, d), x, out)
+            worst = max(worst, res["max_abs_err"])
+            worst_ratio = max(worst_ratio, res["max_err_over_limit"])
+    log(f"kernel edge cases: ok, max abs err {worst:.3g}, at most {worst_ratio:.3g} of an entry's limit")
     return worst
 
 
@@ -322,31 +447,26 @@ def measure_spmm(name, mat, x, drop=None) -> dict:
     """The kernel against the plain version on ``mat`` @ ``x`` (with the edge
     dropout ``drop`` = (seed, p) when given), and the times. Under dropout
     the plain version draws the mask itself, while ``torch.sparse.mm`` gets
-    it folded into its CSR's values: the mask's cost is outside its time."""
+    it folded into its CSR's values: the mask's cost is outside its time.
+    The plain version runs block of rows by block of rows (:func:`row_blocks`),
+    and the kernel is held to it entry by entry (:func:`check_product`)."""
+    blocks = row_blocks(mat, int(x.shape[1]))
 
     def kernel():
         return spmm_csr_cuda(mat, x, drop=drop)
 
-    if drop is None:
-        lib_val = mat.val
+    def plain():
+        return plain_product(blocks, x, drop)
 
-        def plain(x=x):
-            return spmm_csr_reference(mat.row_ptr, mat.col, mat.val, x)
-    else:
-        lib_val = dropout_values(mat.val, mat.eid, *drop)
-
-        def plain(x=x):
-            return spmm_csr_dropout_reference(mat, x, *drop)
-
+    lib_val = mat.val if drop is None else dropout_values(mat.val, mat.eid, *drop)
     out = kernel()
     again = kernel()
     torch.cuda.synchronize()
     if not torch.equal(out, again):
         raise AssertionError(f"{name}: two products on the same inputs differ")
-    ref = plain(x.double())
-    err = close(out, ref, name)
     lib_mat = torch.sparse_csr_tensor(mat.row_ptr, mat.col, lib_val, size=mat.shape)
-    lib_err = (torch.sparse.mm(lib_mat, x) - ref).abs().max().item()
+    check = check_product(name, blocks, x, out, drop, other=torch.sparse.mm(lib_mat, x))
+    err = check["max_abs_err"]
     row = {
         "matrix": name,
         "shape": list(mat.shape),
@@ -354,6 +474,11 @@ def measure_spmm(name, mat, x, drop=None) -> dict:
         "d": int(x.shape[1]),
         "dropout_p": None if drop is None else drop[1],
         "max_abs_err": err,
+        "max_err_over_limit": check["max_err_over_limit"],
+        "limit_over_mean_term": check["limit_over_mean_term"],
+        "library_max_abs_err": check["other_max_abs_err"],
+        "library_max_err_over_limit": check["other_max_err_over_limit"],
+        "plain_blocks": len(blocks),
     }
     fns = {
         "ms": kernel,
@@ -371,18 +496,17 @@ def measure_spmm(name, mat, x, drop=None) -> dict:
     # the product
     degrees = torch.diff(mat.row_ptr)
     r = int(torch.argmax(degrees).item())
-    s, e = (int(v) for v in mat.row_ptr[r : r + 2].tolist())
-    heavy = CsrSpMM(
-        row_ptr=torch.tensor([0, e - s], dtype=torch.int32, device=x.device),
-        col=mat.col[s:e], val=mat.val[s:e], eid=mat.eid[s:e], n_rows=1, n_cols=mat.n_cols,
-    )
-    row["max_degree"] = e - s
+    heavy = row_block(mat, r, r + 1)
+    row["max_degree"] = heavy.nnz
     row["heaviest_row_ms"] = median_ms(lambda: spmm_csr_cuda(heavy, x, drop=drop))
     heavy_device = kernel_device_ms(lambda: spmm_csr_cuda(heavy, x, drop=drop))
     row["heaviest_row_device_ms"] = heavy_device
     log(
-        f"spmm {name}: shape {mat.shape} nnz {mat.nnz} max row degree {e - s} d {x.shape[1]} dropout {drop}: "
-        f"max abs err {err:.3g} (torch.sparse.mm {lib_err:.3g}); single calls: kernel {row['ms']:.4f} ms, "
+        f"spmm {name}: shape {mat.shape} nnz {mat.nnz} max row degree {heavy.nnz} d {x.shape[1]} dropout {drop}: "
+        f"max abs err {err:.3g}, at most {row['max_err_over_limit']:.3g} of an entry's limit, the limit at most "
+        f"{row['limit_over_mean_term']:.3g} of a mean term (torch.sparse.mm {row['library_max_abs_err']:.3g}, "
+        f"{row['library_max_err_over_limit']:.3g} of the limit); plain version in {len(blocks)} row blocks; "
+        f"single calls: kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms; windows of 10 calls: "
         f"kernel {row['ms_windowed']:.4f} ms, plain {row['plain_ms_windowed']:.4f} ms, "
         f"torch.sparse.mm {row['library_ms_windowed']:.4f} ms; bound {row['bound_ms']:.4f} ms "
@@ -743,6 +867,295 @@ def dose_phase(ds, card, rng) -> dict:
     return {"train": train, "selection": selection, "view_row": view_row, "epoch_end": epoch_end, "more": more}
 
 
+def grid_row(name):
+    """Copies of the Gowalla grid's (dataset, model, trainer) configs of the
+    model ``name``."""
+    for dataset_cfg, model_cfg, trainer_cfg in get_gowalla_config():
+        if model_cfg["name"] == name:
+            return dict(dataset_cfg), dict(model_cfg), dict(trainer_cfg)
+    raise KeyError(name)
+
+
+def evaluate_and_check(ds, ev, model, params, name):
+    """``evaluate('test')`` on the card, timed, its metrics against the host
+    oracle over ``recommend``'s lists; -> (metrics, evaluate ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = ev.evaluate(model, params, "test")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_metrics(metrics, f"{name} evaluate")
+    rec = ev.recommend(model, params, "test")
+    check_recommend(ds, rec)
+    oracle = calculate_metrics(ds.test_data, rec, TOPKS)
+    for m in ("Precision", "Recall", "NDCG"):
+        if abs(oracle[m][20] - metrics[m][20]) > 1e-6:
+            raise AssertionError(f"{name} {m}@20: device {metrics[m][20]} vs host oracle {oracle[m][20]}")
+    return metrics, ms
+
+
+def train_recorded(trainer, run):
+    """``run()`` (epochs of ``trainer``) with every step's loss kept; raises
+    unless the losses are finite and the last tenth of each epoch's steps
+    averages below its first tenth. -> (per-epoch step losses, epoch s)."""
+    real_step, steps, epoch_s = trainer.step, [], []
+    real_epoch = trainer.train_one_epoch
+
+    def step(*batch):
+        loss = real_step(*batch)
+        steps.append(loss)
+        return loss
+
+    def epoch():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_epoch()
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        return out
+
+    trainer.step, trainer.train_one_epoch = step, epoch
+    run()
+    trainer.step, trainer.train_one_epoch = real_step, real_epoch
+    losses = torch.stack(steps).double().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{trainer.model.name}: a step loss is not finite")
+    by_epoch = np.split(losses, len(epoch_s))
+    for e, ls in enumerate(by_epoch):
+        k = max(1, len(ls) // 10)
+        if not ls[-k:].mean() < ls[:k].mean():
+            raise AssertionError(f"{trainer.model.name} epoch {e}: loss {ls[:k].mean()} -> {ls[-k:].mean()}, no fall")
+    return by_epoch, epoch_s
+
+
+def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None) -> dict:
+    """Phase 9 (b) for one trainable model: ``run`` trains it (default: one
+    epoch), ``evaluate`` follows; the launches of both by route, one step's
+    launches by route against ``ZOO_LAUNCHES``, the step's times and one
+    profiled step."""
+    model = trainer.model
+    run = run or (lambda: trainer.train_one_epoch())
+    reset_launch_counts()  # the model's run starts here
+    by_epoch, epoch_s = train_recorded(trainer, run)
+    metrics, eval_ms = evaluate_and_check(ds, ev, model, trainer.params, name)
+    run_launches = dict(spmm_csr_cuda.route_launches)  # and ends here
+    expected = ZOO_LAUNCHES[name]
+    if expected and min(run_launches[r] for r in expected) == 0:
+        raise AssertionError(f"{name}: a route of the kernel was not launched in its run: {run_launches}")
+    # a trainer that takes its batches as arguments (MLTrainer) gets one
+    # batch of its epoch, built once outside the timed steps
+    batch = trainer.batches(trainer.epoch)[0][:2] if hasattr(trainer, "batches") else ()
+
+    def step():
+        return trainer.step(*batch)
+
+    reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in spmm_csr_cuda.route_launches.items() if v}
+    if per_step != expected:
+        raise AssertionError(f"{name}: one step launched {per_step}, expected {expected}")
+    step_ms = median_ms(step, reps=30)
+    (step_windowed_ms,) = windowed_ms(step)
+    out = {
+        "card": card,
+        "steps_per_epoch": trainer.steps_per_epoch,
+        "examples_per_step": examples_per_step,
+        "step_ms": step_ms,
+        "step_ms_windowed": step_windowed_ms,
+        "examples_per_s": examples_per_step / step_ms * 1e3,
+        "examples_per_s_windowed": examples_per_step / step_windowed_ms * 1e3,
+        "epoch_s": epoch_s,
+        "epoch_loss_first_last": [[float(ls[0]), float(ls[-1])] for ls in by_epoch],
+        "test_ndcg20": metrics["NDCG"][20],
+        "test_recall20": metrics["Recall"][20],
+        "evaluate_ms": eval_ms,
+        "evaluate_users_per_s": ds.n_users / eval_ms * 1e3,
+        "route_launches_run": run_launches,
+        "launches_per_step": per_step,
+    }
+    breakdown = device_breakdown(step, top=6)
+    busy = "not measured"
+    if breakdown is not None:
+        host, busy_ms, kernels, n_spans = breakdown
+        out["profiled_step"] = {"host_ms": host, "device_busy_ms": busy_ms, "device_launches": n_spans,
+                                "kernels": kernels}
+        busy = f"{busy_ms:.3f} of {host:.3f} ms ({100.0 * busy_ms / host:.1f}%), {n_spans} device launches"
+    log(
+        f"{name} on {card}: step {step_ms:.3f} ms single, {step_windowed_ms:.3f} ms windowed; "
+        f"{out['examples_per_s']:.0f} / {out['examples_per_s_windowed']:.0f} examples/s ({examples_per_step} a step); "
+        f"profiled step: device busy {busy}; SpMM launches a step {per_step}; epoch s {epoch_s}; "
+        f"losses {out['epoch_loss_first_last']} (first and last step of each epoch); evaluate {eval_ms:.1f} ms "
+        f"({out['evaluate_users_per_s']:.0f} users/s), test NDCG@20 {metrics['NDCG'][20]:.6f} = host oracle's; "
+        f"run launches {run_launches}"
+    )
+    return out
+
+
+def check_ngcf_isolated_node():
+    """An NGCF gradient on the card stays finite when an isolated item's
+    self-loop, its row's only edge, is dropped (p 0.95): the row of h is
+    exactly 0, and the clamp inside the square root keeps the backward
+    finite (JAX ``ngcf.py:102-113``)."""
+    tiny = BasicDataset({"name": "Isolated"})
+    tiny.n_users, tiny.n_items = 3, 5  # items 3 and 4 have no interaction
+    tiny.train_array = np.array([[0, 0], [0, 1], [1, 0], [1, 2], [2, 1], [2, 2]])
+    model = get_model({"name": "NGCF", "embedding_size": 8, "layer_sizes": [8, 8], "dropout": 0.95}, tiny)
+    params = model.params()
+    ids = [torch.tensor(v, device=model.device) for v in ([0, 1], [0, 1], [2, 0])]
+    dropped = 0
+    for seed in range(8):
+        out = model.bpr_forward(params, *ids, generator=torch.Generator().manual_seed(seed))
+        loss = bpr_loss(*out[:3]) + 1e-3 * out[3].mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        if not (torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"NGCF seed {seed}: a loss or gradient is not finite")
+        with torch.no_grad():
+            rep = model.get_rep(params, training=True, generator=torch.Generator().manual_seed(seed))
+        dropped += int((rep[tiny.n_users + 3, 8:] == 0).all())
+    if dropped == 0:
+        raise AssertionError("NGCF: no seed dropped the isolated item's self-loop")
+    log(f"NGCF isolated node: gradients finite over 8 steps, the self-loop dropped in {dropped}")
+
+
+def zoo_phase(ds, card, rng) -> dict:
+    """Phase 9: the Gowalla grid's baselines, each at the grid's width, one
+    epoch (NeuMF one per phase), its kernel uses against the plain version."""
+    rows, models, evs = {}, {}, {}
+    # NeuMF's grid row sets the dataset's neg_ratio to 4
+    neumf_ds = copy.copy(ds)
+    neumf_ds.negative_sample_ratio = grid_row("NeuMF")[0]["neg_ratio"]
+
+    def evaluator(batch):
+        if batch not in evs:
+            evs[batch] = Evaluator(ds, topks=TOPKS, test_batch_size=batch)
+        return evs[batch]
+
+    def trainer_of(name, **cut):
+        """The grid row's model and trainer, the trainer cut to one epoch
+        (or as ``cut`` says) and the model config updated by ``model``."""
+        _, model_cfg, trainer_cfg = grid_row(name)
+        model_cfg.update(cut.pop("model", {}))
+        data = neumf_ds if name == "NeuMF" else ds
+        return get_trainer(dict(trainer_cfg, **{"n_epochs": 1, **cut}), data, get_model(model_cfg, data))
+
+    # MF
+    t = trainer_of("MF")
+    models["MF"] = zoo_model_run("MF", t, ds, evaluator(512), card, t.batch_size)
+    del t
+
+    # NGCF: its kernel uses, the isolated node, then the run
+    t = trainer_of("NGCF")
+    adj, p = t.model.norm_adj, t.model.dropout
+    seed = int(rng.integers(0, 2**62))
+    with torch.no_grad():
+        for what, mat in (("NGCF A+I", adj), ("NGCF (A+I)^T", adj.T)):
+            check_dropout_mask(what, mat, seed, p)
+        emb = t.params["embedding"].detach()
+        g = torch.as_tensor(rng.normal(0.0, 0.1, tuple(emb.shape)), dtype=torch.float32, device=emb.device)
+        rows["ngcf_dropout"] = measure_spmm("NGCF A+I dropout", adj, emb, drop=(seed, p))
+        rows["ngcf_transpose_dropout"] = measure_spmm("NGCF (A+I)^T dropout", adj.T, g, drop=(seed, p))
+    check_ngcf_isolated_node()
+    models["NGCF"] = zoo_model_run("NGCF", t, ds, evaluator(512), card, t.batch_size)
+    del t
+
+    # IMCGAE: the padded operand
+    t = trainer_of("IMCGAE")
+    model = t.model
+    with torch.no_grad():
+        x = model.operand(t.params)
+        rows["imcgae"] = measure_spmm(f"IMCGAE adj d{x.shape[1]}", model.norm_adj, x)
+        unpadded = x[:, : model.embedding_size + 3].contiguous()
+        rows["imcgae"]["ms_unpadded"] = median_ms(lambda: spmm_csr_cuda(model.norm_adj, unpadded))
+        rows["imcgae"]["d_unpadded"] = int(unpadded.shape[1])
+        for training in (False, True):
+            padded, _ = model.compact_rep(t.params, training, torch.Generator().manual_seed(1), padded=True)
+            if torch.count_nonzero(padded[:, model.embedding_size + 3 :]) != 0:
+                raise AssertionError(f"IMCGAE: the operand's pad column is not 0 after propagation (training {training})")
+    log(f"IMCGAE: pad column exactly 0 after {model.n_layers} layers, with and without node dropout; "
+        f"d {x.shape[1]} {rows['imcgae']['ms']:.4f} ms against d {unpadded.shape[1]} "
+        f"{rows['imcgae']['ms_unpadded']:.4f} ms (single calls)")
+    models["IMCGAE"] = zoo_model_run("IMCGAE", t, ds, evaluator(512), card, t.batch_size)
+    del t, model
+
+    # IDCF_LGCN over a LightGCN trained one epoch and saved
+    lgcn = trainer_of("LightGCN")
+    lgcn.train_one_epoch()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lgcn.pt")
+        save_checkpoint(path, lgcn.params)
+        t = trainer_of("IDCF_LGCN", model={"lgcn_path": path})
+    del lgcn
+    with torch.no_grad():
+        rows["idcf_feat"] = measure_spmm("IDCF feat", t.model.feat, t.model.frozen_embedding)
+    models["IDCF_LGCN"] = zoo_model_run("IDCF_LGCN", t, ds, evaluator(512), card, t.batch_size)
+    del t
+
+    # MultiVAE
+    t = trainer_of("MultiVAE")
+    models["MultiVAE"] = zoo_model_run("MultiVAE", t, ds, evaluator(512), card, t.batch_size)
+    del t
+
+    # NeuMF: its three phases, one epoch each, through train()
+    t = trainer_of("NeuMF", n_epochs=3, mf_pretrain_epochs=1, mlp_pretrain_epochs=1, val_interval=1)
+    archs = []
+    real_loss = t.loss
+    t.loss = lambda: (archs.append(t.model.arch), real_loss())[1]
+    models["NeuMF"] = zoo_model_run(
+        "NeuMF", t, ds, evaluator(t.evaluator.test_batch_size), card, t.batch_size * (1 + t.neg_ratio),
+        run=lambda: t.train(verbose=False),
+    )
+    n = t.steps_per_epoch
+    if archs[: 3 * n] != ["gmf"] * n + ["mlp"] * n + ["neumf"] * n:
+        raise AssertionError(f"NeuMF's phases: {sorted(set(archs[:3 * n]))} in {len(archs)} steps")
+    models["NeuMF"]["archs"] = ["gmf", "mlp", "neumf"]
+    os.remove(t.save_path)
+    del t
+
+    # ItemKNN: the build, its kernel uses, evaluate
+    _, knn_cfg, _ = grid_row("ItemKNN")
+    reset_launch_counts()  # the build starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn = get_model(knn_cfg, ds)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = spmm_csr_cuda.launches  # and ends here
+    sim_t, k = knn.sim_t, min(knn.k, ds.n_items)
+    if build_launches == 0 or int(torch.bincount(sim_t.col.long(), minlength=ds.n_items).max()) > k:
+        raise AssertionError(f"ItemKNN: {build_launches} build launches, or an item with more than {k} neighbours")
+    rt, _ = knn.similarity_inputs(ds)
+    users = torch.arange(512, device=knn.device)
+    with torch.no_grad():
+        rows["itemknn_rt"] = measure_spmm("ItemKNN R^T block", rt, knn.block_columns(rt, 0, knn.block))
+        profiles_t = dense_profiles(knn.train_padded, users, ds.n_items).T.contiguous()
+        rows["itemknn_sim_t"] = measure_spmm("ItemKNN S^T", sim_t, profiles_t)
+    sim_row = rows["itemknn_sim_t"]
+    ev = evaluator(512)
+    reset_launch_counts()  # ItemKNN's evaluate starts here
+    metrics, eval_ms = evaluate_and_check(ds, ev, knn, {}, "ItemKNN")
+    eval_launches = spmm_csr_cuda.launches  # and ends here
+    models["ItemKNN"] = {
+        "card": card, "k": k, "similarity_build_s": build_s, "build_launches": build_launches,
+        "sim_t_nnz": sim_t.nnz, "evaluate_ms": eval_ms, "evaluate_users_per_s": ds.n_users / eval_ms * 1e3,
+        "evaluate_launches": eval_launches, "test_ndcg20": metrics["NDCG"][20],
+    }
+    log(f"ItemKNN on {card}: similarity build {build_s:.2f} s ({build_launches} launches, "
+        f"{-(-ds.n_items // knn.block)} blocks of {knn.block}); S^T {sim_t.shape} nnz {sim_t.nnz}; "
+        f"the whole S^T @ P (d 512) {sim_row['ms']:.3f} ms, torch.sparse.mm {sim_row['library_ms']:.3f} ms, "
+        f"bound {sim_row['bound_ms']:.3f} ms; evaluate {eval_ms:.1f} ms ({models['ItemKNN']['evaluate_users_per_s']:.0f} "
+        f"users/s, {eval_launches} launches), test NDCG@20 {metrics['NDCG'][20]:.6f} = host oracle's")
+    del knn, rt, sim_t, profiles_t
+
+    # Popularity
+    pop = get_model({"name": "Popularity"}, ds)  # in no grid row; it has no parameter
+    metrics, eval_ms = evaluate_and_check(ds, evaluator(512), pop, {}, "Popularity")
+    models["Popularity"] = {"card": card, "evaluate_ms": eval_ms, "evaluate_users_per_s": ds.n_users / eval_ms * 1e3,
+                            "test_ndcg20": metrics["NDCG"][20]}
+    log(f"Popularity on {card}: evaluate {eval_ms:.1f} ms, test NDCG@20 {metrics['NDCG'][20]:.6f} = host oracle's")
+    return {"rows": rows, "models": models}
+
+
 def main():
     # 1. card
     if not torch.cuda.is_available():
@@ -949,7 +1362,39 @@ def main():
         "symmetric: forward and backward on the same layout); launches: DOSE_aug's training run, on the view",
         [dose["view_row"]],
     )
-    print(json.dumps({"kernels": [kernel, transpose, dropout, view]}))
+
+    # 9. the grid's baselines on the same set
+    zoo = zoo_phase(ds, card, rng)
+    log("zoo: " + json.dumps(zoo["models"]))
+    zrows, zmodels = zoo["rows"], zoo["models"]
+    max_err = max(max_err, *(row["max_abs_err"] for row in zrows.values()))
+    ngcf_run, knn = zmodels["NGCF"]["route_launches_run"], zmodels["ItemKNN"]
+    zoo_entries = [
+        entry("spmm_csr_ngcf_dropout", zrows["ngcf_dropout"], ngcf_run["forward_dropout"],
+              zmodels["NGCF"]["launches_per_step"]["forward_dropout"],
+              "one NGCF layer's product: the self-loop row-L1 A + I under edge dropout (p 0.1, one mask a step); "
+              "launches: NGCF's epoch and evaluate", [zrows["ngcf_dropout"]]),
+        entry("spmm_csr_ngcf_transpose_dropout", zrows["ngcf_transpose_dropout"], ngcf_run["transpose_dropout"],
+              zmodels["NGCF"]["launches_per_step"]["transpose_dropout"],
+              "its backward: (A + I)^T @ g on the transpose CSR under the same mask", [zrows["ngcf_transpose_dropout"]]),
+        entry("spmm_csr_imcgae_padded", zrows["imcgae"], zmodels["IMCGAE"]["route_launches_run"]["forward"],
+              zmodels["IMCGAE"]["launches_per_step"]["forward"],
+              "one IMCGAE layer's product: the sym-normalized adjacency on the compact operand padded from "
+              "d + 3 = 67 to 68 columns (ms_unpadded: the same at 67, the kernel's scalar path); launches: "
+              "IMCGAE's epoch and evaluate, forward and backward", [zrows["imcgae"]]),
+        entry("spmm_csr_idcf_feat", zrows["idcf_feat"], zmodels["IDCF_LGCN"]["route_launches_run"]["forward"],
+              zmodels["IDCF_LGCN"]["launches_per_step"]["forward"],
+              "IDCF's rectangular 0/1 feat @ the frozen table (no gradient); launches: IDCF's epoch and evaluate, "
+              "feat (2 a step) and the adjacency (12 a step) alike", [zrows["idcf_feat"]]),
+        entry("spmm_csr_itemknn_rt_block", zrows["itemknn_rt"], knn["build_launches"], None,
+              "one block of ItemKNN's similarity build: R^T (items x users) @ the block's 512 user columns; "
+              "launches: the build", [zrows["itemknn_rt"]]),
+        entry("spmm_csr_itemknn_sim_t", zrows["itemknn_sim_t"], knn["evaluate_launches"], None,
+              "ItemKNN's scoring S^T @ profiles^T at d 512, the whole S^T (the plain version and the float64 "
+              "check block of rows by block of rows); launches: ItemKNN's evaluate",
+              [zrows["itemknn_sim_t"]]),
+    ]
+    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries]}))
     print(
         json.dumps(
             {

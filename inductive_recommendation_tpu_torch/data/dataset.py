@@ -27,11 +27,14 @@ def get_dataset(config):
 
 class BasicDataset:
     """Base dataset: per-user train/val/test item lists and the train pair
-    array. ``__len__`` is the number of train pairs (the epoch size)."""
+    array. ``__len__`` is the number of train pairs (the epoch size).
+    ``negative_sample_ratio`` is the config's ``neg_ratio`` (default 1), the
+    negatives ``BCETrainer`` draws per positive."""
 
     def __init__(self, dataset_config):
         self.config = dataset_config
         self.name = dataset_config["name"]
+        self.negative_sample_ratio = dataset_config.get("neg_ratio", 1)
         self.n_users = 0
         self.n_items = 0
         self.train_data = None
@@ -96,7 +99,6 @@ class AuxiliaryDataset(BasicDataset):
         item_map = np.asarray(item_map, dtype=np.int64)
         self.n_users = int((user_map >= 0).sum())
         self.n_items = int((item_map >= 0).sum())
-        self.negative_sample_ratio = 1
         self.length = len(dataset)
         lengths = [len(t) for t in dataset.train_data]
         users = np.repeat(user_map[: len(lengths)], lengths)
@@ -165,10 +167,11 @@ def quick_synthetic_dataset(
     seed=0,
     split_ratio=(0.8, 0.1, 0.1),
     name="QuickSynthetic",
+    neg_ratio=1,
 ):
     """Deduped random power-law bipartite graph with a per-user random split,
     built in numpy. The same seed gives the same arrays as the JAX package's
-    ``quick_synthetic_dataset``."""
+    ``quick_synthetic_dataset``; ``neg_ratio`` goes to the dataset config."""
     rng = np.random.default_rng(seed)
     u_w = (1.0 / np.arange(1, n_users + 1)) ** 0.6
     i_w = (1.0 / np.arange(1, n_items + 1)) ** 0.8
@@ -182,7 +185,7 @@ def quick_synthetic_dataset(
     counts = np.bincount(users, minlength=n_users)
     starts = np.concatenate([[0], np.cumsum(counts)])
 
-    ds = BasicDataset({"name": name, "split_ratio": list(split_ratio)})
+    ds = BasicDataset({"name": name, "split_ratio": list(split_ratio), "neg_ratio": neg_ratio})
     ds.n_users, ds.n_items = n_users, n_items
     ds.train_data = [[] for _ in range(n_users)]
     ds.val_data = [[] for _ in range(n_users)]

@@ -18,7 +18,8 @@ JAX's ``view_spmm`` and ``view_propagate_mean`` (``views.py:900-932``) are
 
 :func:`build_view_csr` concatenates the kept base edges and the injected
 ones, sorts them by row with a stable ``torch.sort`` and forms ``row_ptr``
-with ``bincount`` + ``cumsum``, all with torch ops on the engine's device:
+with ``bincount`` + ``cumsum`` (``ops.csr_spmm.csr_on_device``), all with
+torch ops on the engine's device:
 no host round trip of O(|E|) arrays per epoch. The kernel finds its chunk
 schedule from ``row_ptr`` on the card, so a view needs no host plan.
 
@@ -38,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM
+from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, csr_on_device
 
 
 def _draw_generator(seed: int, counter: int, device) -> torch.Generator:
@@ -160,17 +161,4 @@ def build_view_csr(engine: ViewEngine, keep: torch.Tensor, delta) -> CsrSpMM:
     degree = torch.bincount(rows, minlength=n)
     d_inv = torch.pow(torch.clamp(degree.to(torch.float64), min=1.0), -0.5)
     vals = (d_inv[rows] * d_inv[cols]).to(torch.float32)
-    order = torch.sort(rows, stable=True).indices
-    row_ptr = torch.cat([degree.new_zeros(1), torch.cumsum(degree, 0)])
-    if rows.shape[0] >= 2**31:
-        raise ValueError(f"nnz {rows.shape[0]} does not fit the int32 CSR")
-    return CsrSpMM(
-        row_ptr=row_ptr.to(torch.int32),
-        col=cols[order].to(torch.int32),
-        val=vals[order],
-        eid=order.to(torch.int32),
-        n_rows=n,
-        n_cols=n,
-        symmetric=True,
-        view=True,
-    )
+    return csr_on_device(rows, cols, vals, (n, n), symmetric=True, view=True)

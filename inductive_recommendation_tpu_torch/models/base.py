@@ -16,13 +16,19 @@ be scored with parameters carried across from JAX (``models/convert.py``);
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 
 class BasicModel(nn.Module):
     """Name/shape bookkeeping and the default dot-product scoring
-    (reference model.py:35-53)."""
+    (reference model.py:35-53). ``trainable`` is False for the eval-only
+    baselines (ItemKNN, Popularity), which ``BasicTrainer.train`` only
+    validates."""
+
+    trainable = True
 
     def __init__(self, model_config, dataset, device):
         super().__init__()
@@ -83,3 +89,35 @@ def l2_sq_rows(*tensors) -> torch.Tensor:
     for t in tensors:
         total = total + (t * t).sum(dim=-1)
     return total
+
+
+class Linear(nn.Module):
+    """A linear layer's parameters in the JAX package's layout
+    (``models/base.py:127-136`` there): ``w`` [in, out], ``b`` [out], applied
+    as ``x @ w + b``, so that parameters carry across untransposed."""
+
+    def __init__(self, in_features: int, out_features: int, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(in_features, out_features, device=device))
+        self.b = nn.Parameter(torch.empty(out_features, device=device))
+        self.reset(None)
+
+    @torch.no_grad()
+    def reset(self, generator):
+        """Kaiming-uniform weight over fan_in = in_features, zero bias
+        (reference init_one_layer, model.py:28-32)."""
+        kaiming_uniform_(self.w, self.w.shape[0], generator)
+        self.b.zero_()
+
+
+def linear(params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` with the layer ``name``'s entries of ``params``."""
+    return x @ params[name + ".w"] + params[name + ".b"]
+
+
+@torch.no_grad()
+def kaiming_uniform_(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """U(-sqrt(6 / fan_in), sqrt(6 / fan_in)) in place (JAX
+    ``kaiming_uniform_init``)."""
+    bound = math.sqrt(6.0 / fan_in)
+    return t.uniform_(-bound, bound, generator=generator)

@@ -416,8 +416,3 @@ class DOSE_test(DOSE_aug):
     def _contrastive(self, params, users, users_r, training, generator):
         return self.view_users(params, "aug_adj", users, training, generator)
 
-
-NOT_PORTED = {
-    "DOSE_aug2": "DOSE_aug2 is not ported yet: it rebuilds the feature matrix over the augmented graph every "
-    "epoch and needs the rectangular feature-matrix delta (JAX graph/views.py device_make_feat_delta)",
-}

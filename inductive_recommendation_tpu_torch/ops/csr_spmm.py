@@ -122,6 +122,29 @@ def build_csr_spmm(row, col, val, shape, symmetric: bool = False, device="cpu") 
     return _one_side(row, col, val, eid, n_rows, n_cols, device, transpose=transpose)
 
 
+def csr_on_device(rows, cols, vals, shape, **flags) -> CsrSpMM:
+    """CSR of COO triples already on a device (torch tensors), with rows
+    sorted stably and explicit zeros dropped, built there with no host copy;
+    ``eid`` is an edge's position in the triples. No transpose is built:
+    ``flags`` (``symmetric``, ``view``) say what the layout is."""
+    keep = vals != 0
+    eid = torch.nonzero(keep).flatten()
+    rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    if rows.shape[0] >= 2**31:
+        raise ValueError(f"nnz {rows.shape[0]} does not fit the int32 CSR")
+    order = torch.sort(rows, stable=True).indices
+    counts = torch.bincount(rows, minlength=shape[0])
+    return CsrSpMM(
+        row_ptr=torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32),
+        col=cols[order].to(torch.int32),
+        val=vals[order].to(torch.float32),
+        eid=eid[order].to(torch.int32),
+        n_rows=int(shape[0]),
+        n_cols=int(shape[1]),
+        **flags,
+    )
+
+
 def row_of_edges(row_ptr: torch.Tensor) -> torch.Tensor:
     n_rows = row_ptr.shape[0] - 1
     rows = torch.arange(n_rows, dtype=torch.int32, device=row_ptr.device)

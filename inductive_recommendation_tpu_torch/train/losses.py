@@ -1,8 +1,9 @@
 """Losses (counterpart of ``inductive_recommendation_tpu/train/losses.py``):
-BPR, softplus(neg_score - pos_score) (reference trainer.py:278,422), and
+BPR, softplus(neg_score - pos_score) (reference trainer.py:278,422);
 InfoNCE with unpaired negatives, the ``info-nce-pytorch`` semantics the
 reference uses for DOSE (model.py:14, ``InfoNCE(negative_mode='unpaired')``,
-temperature 0.1)."""
+temperature 0.1); NeuMF's BCE (trainer.py:592-599) and MultiVAE's
+multinomial log-likelihood (trainer.py:630-634)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,20 @@ def bpr_loss(users_r, pos_r, neg_r) -> torch.Tensor:
     pos_scores = (users_r * pos_r).sum(dim=1)
     neg_scores = (users_r * neg_r).sum(dim=1)
     return softplus(neg_scores - pos_scores).mean()
+
+
+def bce_losses(pos_logits, neg_logits) -> torch.Tensor:
+    """The softplus BCE terms, positives then negatives (trainer.py:592-599)."""
+    return torch.cat([softplus(-pos_logits), softplus(neg_logits)])
+
+
+def multinomial_ll_loss(scores, profiles, valid=None) -> torch.Tensor:
+    """-sum(profile * log_softmax(scores)) averaged over users; ``valid``
+    (optional [B] 0/1 weights) leaves padded batch rows out of the mean."""
+    ml = -(profiles * log_softmax(scores, dim=1)).sum(dim=1)
+    if valid is None:
+        return ml.mean()
+    return (ml * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
 def aux_bpr_w(emb, w, a_users, a_pos, a_neg, user_dim) -> torch.Tensor:

@@ -20,7 +20,8 @@ weight decay): the update of ``optax.adam`` at its defaults, up to fp32
 rounding.
 
 Not ported: the mesh, SGD (no ported configuration uses it),
-``eval_train_every_epoch`` and the summary writer.
+``eval_train_every_epoch``, the summary writer, and ``SGLTrainer`` /
+``HALFTrainer`` (their models are not ported yet).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from inductive_recommendation_tpu_torch.data.dataset import AuxiliaryDataset
 from inductive_recommendation_tpu_torch.data.sampling import build_sampler_state, sample_bpr_batch
 from inductive_recommendation_tpu_torch.eval.evaluator import Evaluator
 from inductive_recommendation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bpr_loss
+from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, multinomial_ll_loss
 
 OPTIMIZERS = {"Adam": torch.optim.Adam}
 
@@ -79,13 +80,14 @@ class BasicTrainer:
         self.optimizer = opt_cls(list(self.params.values()), lr=self.config["lr"])
 
     # -- one step ------------------------------------------------------------
-    def loss(self) -> torch.Tensor:
-        """The loss of one freshly sampled batch, with its autograd graph."""
+    def loss(self, *batch) -> torch.Tensor:
+        """The loss of one batch, with its autograd graph: a freshly sampled
+        one unless the trainer takes its batches as arguments."""
         raise NotImplementedError
 
-    def step(self) -> torch.Tensor:
+    def step(self, *batch) -> torch.Tensor:
         """One optimizer step; returns the batch loss as a device scalar."""
-        loss = self.loss()
+        loss = self.loss(*batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -152,7 +154,15 @@ class BasicTrainer:
         """Trains up to ``n_epochs`` (from ``self.epoch``, so a restored state
         resumes), validates every ``val_interval`` epochs, keeps the best
         checkpoint under ``checkpoints/`` in the working directory and
-        reloads it at the end. Returns the best validation NDCG."""
+        reloads it at the end. Returns the best validation NDCG. A model
+        that does not train (ItemKNN, Popularity) is validated once and its
+        NDCG@topks[min(5, len - 1)] returned (trainer.py:64 of the
+        reference)."""
+        if not self.model.trainable:
+            results, metrics = self.eval("val")
+            if verbose:
+                print("Validation result. {:s}".format(results))
+            return metrics["NDCG"][self.topks[min(5, len(self.topks) - 1)]]
         os.makedirs("checkpoints", exist_ok=True)
         for epoch in range(self.epoch, self.n_epochs):
             # self.epoch counts completed epochs; during one it is its index
@@ -212,7 +222,7 @@ class BasicTrainer:
 
 
 class BPRTrainer(BasicTrainer):
-    """BPR + L2 (trainer.py:403-429); LightGCN."""
+    """BPR + L2 (trainer.py:403-429); MF, LightGCN, NGCF, IMCGAE."""
 
     def __init__(self, trainer_config, dataset, model):
         super().__init__(trainer_config, dataset, model)
@@ -222,10 +232,117 @@ class BPRTrainer(BasicTrainer):
 
     def loss(self):
         users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
-        u_r, p_r, n_r, l2 = self.model.bpr_forward(
-            self.params, users, pos, neg[:, 0], training=True, generator=self.host_generator
-        )
+        out = self.model.bpr_forward(self.params, users, pos, neg[:, 0], training=True, generator=self.host_generator)
+        return self._objective(out)
+
+    def _objective(self, out):
+        u_r, p_r, n_r, l2 = out[:4]
         return bpr_loss(u_r, p_r, n_r) + self.l2_reg * l2.mean()
+
+
+class ContrastiveBPRTrainer(BPRTrainer):
+    """BPR + L2 + ``contrastive_reg`` times the mean of the fifth,
+    contrastive output of the model's ``bpr_forward`` (the loss of the JAX
+    package's ``SGLTrainer``, trainer.py:472-511 there); no epoch end."""
+
+    def __init__(self, trainer_config, dataset, model):
+        super().__init__(trainer_config, dataset, model)
+        self.contrastive_reg = trainer_config["contrastive_reg"]
+
+    def _objective(self, out):
+        return super()._objective(out) + self.contrastive_reg * out[4].mean()
+
+
+class IDCFTrainer(ContrastiveBPRTrainer):
+    """IDCF_LGCN's trainer (reference trainer.py:488-515): the contrastive BPR
+    loss, no view to regenerate at the epoch end."""
+
+
+class BCETrainer(BasicTrainer):
+    """NeuMF's three pretraining phases (reference trainer.py:564-607):
+    ``gmf`` for ``mf_pretrain_epochs`` epochs, then ``mlp`` (best checkpoint
+    reloaded, optimizer reset), then ``neumf`` (reloaded, optimizer reset, the
+    MLP layers re-initialized and the fusion weights set to ones); the loss
+    is softplus BCE on one positive and ``neg_ratio`` negatives per user
+    (the dataset's ``negative_sample_ratio``) plus L2."""
+
+    def __init__(self, trainer_config, dataset, model):
+        super().__init__(trainer_config, dataset, model)
+        self.l2_reg = trainer_config["l2_reg"]
+        self.mf_pretrain_epochs = trainer_config["mf_pretrain_epochs"]
+        self.mlp_pretrain_epochs = trainer_config["mlp_pretrain_epochs"]
+        self.neg_ratio = dataset.negative_sample_ratio
+        self.initialize_optimizer()
+        self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
+
+    def loss(self):
+        users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size, neg_ratio=self.neg_ratio)
+        pos_logits, l2_p = self.model.bce_forward(self.params, users, pos)
+        neg_logits, l2_n = self.model.bce_forward(self.params, users.repeat_interleave(self.neg_ratio), neg.reshape(-1))
+        return bce_losses(pos_logits, neg_logits).mean() + self.l2_reg * torch.cat([l2_p, l2_n]).mean()
+
+    def _switch_arch(self, arch):
+        """Reload the phase's best checkpoint, then switch: the checkpoint
+        restores the arch it was saved in, which would undo a switch made
+        first (JAX trainer.py:676-691)."""
+        if self.save_path and os.path.exists(self.save_path):
+            self._load_model(self.save_path)
+        self.model.arch = arch
+        self.initialize_optimizer()
+        self.best_ndcg = -np.inf
+
+    def train_one_epoch(self):
+        if self.epoch == self.mf_pretrain_epochs:
+            self._switch_arch("mlp")
+        if self.epoch == self.mf_pretrain_epochs + self.mlp_pretrain_epochs:
+            self._switch_arch("neumf")
+            self.model.init_mlp_layers(torch.Generator(device=self.device).manual_seed(self.seed + 7))
+        return super().train_one_epoch()
+
+
+class MLTrainer(BasicTrainer):
+    """MultiVAE (reference trainer.py:610-642): shuffled batches of users,
+    the multinomial log-likelihood + the annealed KL weight
+    min(kl_reg, epoch / n_epochs) times the KL + L2 on the weights.
+
+    An epoch's user order is ``np.random.default_rng((seed, 61, epoch))``'s
+    permutation, as in the JAX package; the last batch is padded with user 0
+    and a ``valid`` weight of 0. The epoch's loss is the mean over batches
+    weighted by their real users."""
+
+    def __init__(self, trainer_config, dataset, model):
+        super().__init__(trainer_config, dataset, model)
+        self.l2_reg = trainer_config["l2_reg"]
+        self.kl_reg = trainer_config["kl_reg"]
+        self.initialize_optimizer()
+        self.steps_per_epoch = max(1, -(-dataset.n_users // self.batch_size))
+
+    def batches(self, epoch):
+        """[(users [B] int64, valid [B] fp32, real users)] of ``epoch``, on
+        the model's device: the padded order goes to the device in one copy."""
+        perm = np.random.default_rng((self.seed, 61, epoch)).permutation(self.dataset.n_users)
+        B, n_users = self.batch_size, len(perm)
+        pad = self.steps_per_epoch * B - n_users
+        users = torch.as_tensor(np.concatenate([perm, np.zeros(pad, perm.dtype)]), device=self.device).view(-1, B)
+        valid = (torch.arange(users.numel(), device=self.device) < n_users).to(torch.float32).view(-1, B)
+        return [(users[i], valid[i], min(B, n_users - i * B)) for i in range(self.steps_per_epoch)]
+
+    def kl_weight(self) -> float:
+        return min(self.kl_reg, 1.0 * self.epoch / max(self.n_epochs, 1))
+
+    def loss(self, users, valid):
+        """The loss of a batch of ``batches``: its users and valid weights."""
+        scores, kl, l2 = self.model.ml_forward(self.params, users, training=True, generator=self.host_generator)
+        ml = multinomial_ll_loss(scores, self.model.profiles(users, normalized=False), valid)
+        kl_loss = (kl * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        return ml + self.kl_weight() * kl_loss + self.l2_reg * l2.mean()
+
+    def train_one_epoch(self):
+        losses, weights = [], []
+        for users, valid, n in self.batches(self.epoch):
+            losses.append(self.step(users, valid))
+            weights.append(n)
+        return float(np.average(torch.stack(losses).double().cpu().numpy(), weights=weights))
 
 
 class IGCNTrainer(BasicTrainer):
@@ -294,7 +411,10 @@ class DOSEtestTrainer(DOSEaugTrainer):
 
 TRAINERS = {
     cls.__name__: cls
-    for cls in (BasicTrainer, BPRTrainer, IGCNTrainer, DOSEaugTrainer, DOSEdropTrainer, DOSEtestTrainer)
+    for cls in (
+        BasicTrainer, BPRTrainer, IGCNTrainer, IDCFTrainer, BCETrainer, MLTrainer,
+        DOSEaugTrainer, DOSEdropTrainer, DOSEtestTrainer,
+    )
 }
 
 
