@@ -79,17 +79,33 @@ Phases, each of which raises on failure (the exit code is then not 0):
    Each: the loss finite and falling within the epoch, metrics equal to the
    host oracle's, SpMM launches a step by route (NGCF 12, IMCGAE 12, IDCF 14,
    the others 0), step ms (single and windowed), examples/s, one profiled
-   step, epoch s, ``evaluate`` ms and users/s.
+   step, epoch s, ``evaluate`` ms and users/s;
+10. the last four models on the same set, one epoch each, with the checks,
+   counts and times of phase 9 (b) (``STEP_LAUNCHES``). (a) AttIGCN at
+   IGCN's grid width (4 heads) with the IGCN row's trainer: the product with
+   the model's attention as edge values and its transpose against float64,
+   d(values) within 1e-5 of max |float64|, ``get_rep`` against the float64
+   plain chain, the step's peak device memory. (b) SGL and HALF at
+   LightGCN's grid width (aug_rate 0.8): each view keeps exactly
+   int(0.8 * n_pairs) pairs and is symmetric, the views change at the epoch
+   end, and a reload's views equal the saved ones bit for bit. (c)
+   DOSE_aug2 on DOSE_aug's grid row: the selection (the 500,000
+   highest-cosine pairs) against float64 cosines, the augmented feature
+   CSR (its transpose the same edges and values, its row sums the base's
+   plus the injected entries, the same kept edges both ways, both products
+   under dropout against float64), and the epoch end's selection, view and
+   augmented-matrix build times.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
 serving path and read just after, and again around the training runs of
-phases 7 and 8 and each model's run in phase 9. The last lines are one JSON
-object of kernel numbers and then ``{"ok": true, "device": {...}}``.
+phases 7 and 8 and each model's run in phases 9 and 10. The last lines are
+one JSON object of kernel numbers and then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -104,6 +120,7 @@ from inductive_recommendation_tpu_torch import get_model, get_trainer
 from inductive_recommendation_tpu_torch.configs import get_gowalla_config
 from inductive_recommendation_tpu_torch.data import BasicDataset, quick_synthetic_dataset
 from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
+from inductive_recommendation_tpu_torch.graph.views import build_aug_feat_csr
 from inductive_recommendation_tpu_torch.models import params_from_jax
 from inductive_recommendation_tpu_torch.ops import (
     CsrSpMM,
@@ -116,7 +133,9 @@ from inductive_recommendation_tpu_torch.ops import (
     spmm_csr_dropout,
     spmm_csr_dropout_reference,
     spmm_csr_reference,
+    spmm_csr_values,
 )
+from inductive_recommendation_tpu_torch.ops.attention_spmm import fused_kv_attention
 from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values, reset_launch_counts
 from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
 from inductive_recommendation_tpu_torch.utils.profiles import dense_profiles
@@ -144,12 +163,27 @@ SELECTION_SAMPLE = 1_000_000
 # gathers within this many bytes (ItemKNN's whole S^T @ P at d 512 in one
 # pass would gather about 170 GB)
 PLAIN_BLOCK_BYTES = 2**32
-# SpMM launches a training step, by route, of each phase 9 model
-ZOO_LAUNCHES = {
+# phase 10: AttIGCN at IGCN's grid width with the IGCN row's trainer; SGL
+# and HALF at LightGCN's grid width with the LightGCN row's lr and l2 and the
+# grid's DOSE contrastive_reg (no grid row has SGL); DOSE_aug2 on DOSE_aug's
+# grid row renamed; one epoch each
+ATT_CONFIG = dict(IGCN_CONFIG, name="AttIGCN", n_heads=4)
+SGL_CONFIG = {"name": "SGL", "embedding_size": 64, "n_layers": 3, "aug_rate": 0.8}
+SGL_TRAINER_CONFIG = dict(TRAINER_CONFIG, name="SGLTrainer", l2_reg=1e-4, contrastive_reg=0.1, n_epochs=1)
+DOSE_AUG2_CONFIG = dict(DOSE_CONFIG, name="DOSE_aug2")
+# SpMM launches a training step, by route, of each phase 9 and 10 model
+STEP_LAUNCHES = {
     "MF": {}, "MultiVAE": {}, "NeuMF": {},
     "NGCF": {"forward_dropout": 6, "transpose_dropout": 6},
     "IMCGAE": {"forward": 12},
     "IDCF_LGCN": {"forward": 14},
+    # the query's feat product and the adjacency's 3 + 3; the aggregation and its backward
+    "AttIGCN": {"forward": 14, "attention": 2, "attention_transpose": 2},
+    "SGL": {"forward": 12, "view": 24},
+    "HALF": {"forward": 12, "view": 12},
+    # DOSE_aug's 32, the view's feature products on the augmented matrix
+    "DOSE_aug2": {"forward": 12, "forward_dropout": 2, "transpose_dropout": 2, "view": 12, "aug_feat": 2,
+                  "aug_feat_transpose": 2},
 }
 TOPKS = [20]
 TEST_BATCH = 512
@@ -173,6 +207,16 @@ def log(*args):
 def nvidia_smi_name_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_clocks() -> str:
+    """The card's SM and memory clocks (MHz) and power draw now, as
+    nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -490,8 +534,10 @@ def measure_spmm(name, mat, x, drop=None) -> dict:
     for key, ms in zip(fns, windowed_ms(*fns.values())):
         row[f"{key}_windowed"] = ms
     row["bound_ms"], row["bound_by"] = spmm_bound_ms(mat, int(x.shape[1]), dropout=drop is not None)
-    # device time by kernel: launch 1 (the chunks) and launch 2 (the carries)
+    # device time by kernel: launch 1 (the chunks) and launch 2 (the carries),
+    # and the clocks the card ran them at
     row["kernel_device_ms"] = kernel_device_ms(kernel)
+    row["clocks_after"] = card_clocks()
     # the heaviest row alone: split over chunks, it should no longer floor
     # the product
     degrees = torch.diff(mat.row_ptr)
@@ -510,7 +556,8 @@ def measure_spmm(name, mat, x, drop=None) -> dict:
         f"plain {row['plain_ms']:.4f} ms, torch.sparse.mm {row['library_ms']:.4f} ms; windows of 10 calls: "
         f"kernel {row['ms_windowed']:.4f} ms, plain {row['plain_ms_windowed']:.4f} ms, "
         f"torch.sparse.mm {row['library_ms_windowed']:.4f} ms; bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}); device ms by kernel {row['kernel_device_ms']}; the heaviest row alone "
+        f"({row['bound_by']}); device ms by kernel {row['kernel_device_ms']} (then SM, memory clocks and power "
+        f"{row['clocks_after']}); the heaviest row alone "
         f"{row['heaviest_row_ms']:.4f} ms (single calls), device ms by kernel {heavy_device}; "
         f"gathered nnz*d*4 B = {4 * mat.nnz * int(x.shape[1]) / 1e6:.1f} MB at {EDGES_PER_CHUNK} edges "
         f"per chunk; two products bitwise equal"
@@ -518,11 +565,13 @@ def measure_spmm(name, mat, x, drop=None) -> dict:
     return row
 
 
-def plain_rep(model, params):
-    """IGCN get_rep through the plain SpMM, on the same device, in float64."""
-    emb = params["embedding"][: model.feat_n_cols].double()
-    x = spmm_csr_reference(model.feat.row_ptr, model.feat.col, model.feat.val, emb)
-    acc = x
+def plain_rep(model, params, x0=None):
+    """IGCN get_rep through the plain SpMM, on the same device, in float64;
+    ``x0`` (float64) replaces the feature product."""
+    if x0 is None:
+        emb = params["embedding"][: model.feat_n_cols].double()
+        x0 = spmm_csr_reference(model.feat.row_ptr, model.feat.col, model.feat.val, emb)
+    x, acc = x0, x0
     for _ in range(model.n_layers):
         x = spmm_csr_reference(model.norm_adj.row_ptr, model.norm_adj.col, model.norm_adj.val, x)
         acc = acc + x
@@ -783,14 +832,15 @@ def check_symmetric(view):
         raise AssertionError("the view CSR is not symmetric")
 
 
-def check_selection(model, params, rng) -> dict:
-    """Phase 8 (b): DOSE_aug's selection on the card against float64
-    cosines, and its time."""
+def check_selection(model, params, rng, negate=True) -> dict:
+    """Phases 8 (b) and 10 (c): DOSE_aug's selection (the lowest cosines,
+    items negated) or DOSE_aug2's (the highest, ``negate`` False) on the card
+    against float64 cosines, and its time."""
     k = model.aug_num
     with torch.no_grad():
         rep = model.get_rep(params, training=False)
     users_r, items_r = rep[: model.n_users], rep[model.n_users :]
-    vals, uid, iid = blockwise_cosine_topk(users_r, items_r, k, negate_items=True)
+    vals, uid, iid = blockwise_cosine_topk(users_r, items_r, k, negate_items=negate)
     uid, iid = uid.long(), iid.long()
     if vals.shape != (k,) or not torch.isfinite(vals).all() or (torch.diff(vals) > 0).any():
         raise AssertionError("the selected values are not k finite values in descending order")
@@ -798,7 +848,7 @@ def check_selection(model, params, rng) -> dict:
     if torch.unique(keys).numel() != k:
         raise AssertionError("the selection holds a pair twice")
     un = users_r.double() / users_r.double().norm(dim=1, keepdim=True).clamp_min(1e-12)
-    itn = -items_r.double() / items_r.double().norm(dim=1, keepdim=True).clamp_min(1e-12)
+    itn = (-1.0 if negate else 1.0) * items_r.double() / items_r.double().norm(dim=1, keepdim=True).clamp_min(1e-12)
     cos_err = ((un[uid] * itn[iid]).sum(1) - vals.double()).abs().max().item()
     if cos_err > 1e-5:
         raise AssertionError(f"a selected value is {cos_err} from its pair's float64 cosine")
@@ -810,10 +860,11 @@ def check_selection(model, params, rng) -> dict:
     kth = vals[-1].item()
     if sample_max > kth + 1e-5:
         raise AssertionError(f"a pair outside the selection has cos {sample_max} above the k-th value {kth}")
-    ms = host_ms(lambda: blockwise_cosine_topk(users_r, items_r, k, negate_items=True), 3)
+    ms = host_ms(lambda: blockwise_cosine_topk(users_r, items_r, k, negate_items=negate), 3)
     out = {"k": k, "kth_value": kth, "max_cos_err_float64": cos_err, "sample_max_outside": sample_max,
            "sample_outside": int(outside.sum()), "selection_ms": ms, "panels": -(-model.n_users // 512)}
-    log(f"selection: {k} lowest-cosine pairs of {model.n_users} x {model.n_items}, sorted and distinct; k-th value "
+    which = "lowest" if negate else "highest"
+    log(f"selection: {k} {which}-cosine pairs of {model.n_users} x {model.n_items}, sorted and distinct; k-th value "
         f"{kth:.6f}; max |value - float64 cos| {cos_err:.3g}; max over {out['sample_outside']} sampled pairs outside "
         f"it {sample_max:.6f}; {ms} ms ({out['panels']} panels of 512 users)")
     return out
@@ -929,17 +980,17 @@ def train_recorded(trainer, run):
 
 
 def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None) -> dict:
-    """Phase 9 (b) for one trainable model: ``run`` trains it (default: one
-    epoch), ``evaluate`` follows; the launches of both by route, one step's
-    launches by route against ``ZOO_LAUNCHES``, the step's times and one
-    profiled step."""
+    """Phases 9 (b) and 10 for one trainable model: ``run`` trains it
+    (default: one epoch), ``evaluate`` follows; the launches of both by
+    route, one step's launches by route against ``STEP_LAUNCHES``, the
+    step's times and one profiled step."""
     model = trainer.model
     run = run or (lambda: trainer.train_one_epoch())
     reset_launch_counts()  # the model's run starts here
     by_epoch, epoch_s = train_recorded(trainer, run)
     metrics, eval_ms = evaluate_and_check(ds, ev, model, trainer.params, name)
     run_launches = dict(spmm_csr_cuda.route_launches)  # and ends here
-    expected = ZOO_LAUNCHES[name]
+    expected = STEP_LAUNCHES[name]
     if expected and min(run_launches[r] for r in expected) == 0:
         raise AssertionError(f"{name}: a route of the kernel was not launched in its run: {run_launches}")
     # a trainer that takes its batches as arguments (MLTrainer) gets one
@@ -1153,6 +1204,176 @@ def zoo_phase(ds, card, rng) -> dict:
     models["Popularity"] = {"card": card, "evaluate_ms": eval_ms, "evaluate_users_per_s": ds.n_users / eval_ms * 1e3,
                             "test_ndcg20": metrics["NDCG"][20]}
     log(f"Popularity on {card}: evaluate {eval_ms:.1f} ms, test NDCG@20 {metrics['NDCG'][20]:.6f} = host oracle's")
+    return {"rows": rows, "models": models}
+
+
+def plain_att_rep(model, params):
+    """AttIGCN get_rep in float64: the query and the adjacency through the
+    plain SpMM, the attention through its torch ops, the aggregation through
+    the plain SpMM with the attention as values."""
+    p = {k: v.detach().double() for k, v in params.items()}
+    emb = p["embedding"][: model.feat_n_cols]
+    feat, att = model.feat, model.att_feat
+    x_q = spmm_csr_reference(feat.row_ptr, feat.col, feat.val.double(), emb)
+    q = (x_q @ p["weight_q.w"] + p["weight_q.b"]).reshape(-1, model.n_heads, model.embedding_size)
+    attn = fused_kv_attention(att, q, p["weight_k.w"], p["weight_k.b"], emb, model.temperature)
+    return plain_rep(model, params, spmm_csr_reference(att.row_ptr, att.col, attn, emb))
+
+
+def check_attention_kernels(model, params, rng) -> dict:
+    """Phase 10 (a): the product with the model's attention as edge values and
+    its transpose (the attention gathered into the transpose's edge order)
+    against float64; d(values) through the autograd Function against
+    float64, within 1e-5 of max |float64|; ``get_rep`` against the float64
+    plain chain."""
+    att, d = model.att_feat, model.embedding_size
+    emb = params["embedding"][: model.feat_n_cols].detach()
+    g = torch.as_tensor(rng.normal(0.0, 0.1, (att.n_rows, d)), dtype=torch.float32, device=emb.device)
+    with torch.no_grad():
+        attn = model.attention(params)
+        rows = {
+            "attention": measure_spmm("attention", dataclasses.replace(att, val=attn), emb),
+            "attention_transpose": measure_spmm(
+                "attention^T", dataclasses.replace(att.T, val=attn[att.t_pos].contiguous()), g
+            ),
+        }
+    values = attn.clone().requires_grad_(True)
+    (spmm_csr_values(att, emb, values) * g).sum().backward()
+    with torch.no_grad():
+        plain = (g.double()[att.edge_rows().long()] * emb.double()[att.col.long()]).sum(-1)
+        err = (values.grad.double() - plain).abs().max().item()
+        scale = plain.abs().max().item()
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"d(values): max abs err {err} > 1e-5 * {scale}")
+    rows["d_values_max_abs_err"], rows["d_values_max_abs_plain"] = err, scale
+    with torch.no_grad():
+        rep = model.get_rep(params)
+        rows["rep_max_abs_err"] = close(rep, plain_att_rep(model, params), "AttIGCN get_rep vs the plain chain")
+    if rep.shape != (model.n_users + model.n_items, d) or not torch.isfinite(rep).all():
+        raise AssertionError(f"AttIGCN get_rep: shape {tuple(rep.shape)} or non-finite values")
+    log(f"AttIGCN: attention over {att.nnz} edges ({model.n_heads} heads, T {model.temperature}); d(values) max abs "
+        f"err {err:.3g} (max |float64| {scale:.3g}); get_rep vs the float64 plain chain {rows['rep_max_abs_err']:.3g}")
+    return rows
+
+
+def step_peak_bytes(trainer) -> int:
+    """Peak device memory allocated over one training step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def check_sgl_views(model):
+    """Each view keeps exactly int(aug_rate * n_pairs) train pairs, both
+    directions, and is symmetric."""
+    n_keep = int(model.aug_rate * model.view_engine.n_pairs)
+    for key, view in model.views.items():
+        if view.nnz != 2 * n_keep:
+            raise AssertionError(f"{model.name} view {key}: nnz {view.nnz}, expected 2 x {n_keep}")
+        check_symmetric(view)
+    return n_keep
+
+
+def check_aug_feat(model, params, rng) -> dict:
+    """Phase 10 (c): DOSE_aug2's augmented feature CSR after an update: the
+    transpose holds the same edges with the same values; the row sums are
+    the base's plus the injected entries; the kernel keeps the same edges
+    both ways; both products under dropout against float64."""
+    aug, base, n = model.aug_feat, model._aug_base, model.n_users + model.n_items
+    fo, to = torch.argsort(aug.eid), torch.argsort(aug.T.eid)
+    same = (torch.equal(aug.eid[fo], aug.T.eid[to]) and torch.equal(aug.edge_rows()[fo], aug.T.col[to])
+            and torch.equal(aug.col[fo], aug.T.edge_rows()[to]) and torch.equal(aug.val[fo], aug.T.val[to]))
+    if not same:
+        raise AssertionError("the augmented feature CSR's transpose does not hold its edges and values")
+    # every base entry counts 1 (deduplicated pairs), every injected one 1
+    injected = model.aug_row_sum - base["row_sum"]
+    n_new = (model.views["aug_adj"].nnz - model.norm_adj.nnz) // 2  # selected pairs not in train
+    if not (torch.equal(base["row_sum"], torch.bincount(base["rows"], minlength=n).float())
+            and torch.equal(model.aug_row_sum, torch.diff(aug.row_ptr).float())
+            and int(injected.sum()) == aug.nnz - base["rows"].shape[0] == 2 * n_new):
+        raise AssertionError(f"row sums: {int(injected.sum())} injected, {aug.nnz - base['rows'].shape[0]} new "
+                             f"edges, {n_new} new pairs")
+    p, seed = model.dropout, int(rng.integers(0, 2**62))
+    kept = {name: check_dropout_mask(name, mat, seed, p) for name, mat in (("aug_feat", aug), ("aug_feat^T", aug.T))}
+    emb = params["embedding"][: model.feat_n_cols].detach()
+    g = torch.as_tensor(rng.normal(0.0, 0.1, (aug.n_rows, emb.shape[1])), dtype=torch.float32, device=emb.device)
+    with torch.no_grad():
+        rows = {
+            "aug_feat_dropout": measure_spmm("aug_feat dropout", aug, emb, drop=(seed, p)),
+            "aug_feat_transpose_dropout": measure_spmm("aug_feat^T dropout", aug.T, g, drop=(seed, p)),
+        }
+    log(f"DOSE_aug2 augmented feature CSR: {aug.shape} nnz {aug.nnz} ({base['rows'].shape[0]} train entries + "
+        f"{int(injected.sum())} from {n_new} selected pairs not in train); transpose the same edges and values; "
+        f"row sums base + injected; kept edges {kept}")
+    return rows
+
+
+def last_models_phase(ds, card, rng) -> dict:
+    """Phase 10: AttIGCN, SGL, HALF and DOSE_aug2, one epoch each, their new
+    kernel uses against the plain version."""
+    rows, models = {}, {}
+    ev = Evaluator(ds, topks=TOPKS, test_batch_size=TEST_BATCH)
+
+    # (a) AttIGCN
+    t = get_trainer(dict(TRAINER_CONFIG, n_epochs=1), ds, get_model(ATT_CONFIG, ds))
+    rows.update(check_attention_kernels(t.model, t.params, rng))
+    models["AttIGCN"] = zoo_model_run("AttIGCN", t, ds, ev, card, t.batch_size)
+    models["AttIGCN"]["step_peak_bytes"] = step_peak_bytes(t)
+    log(f"AttIGCN step peak device memory {models['AttIGCN']['step_peak_bytes'] / 2**30:.3f} GiB")
+    del t
+
+    # (b) SGL and HALF
+    for name, trainer_name in (("SGL", "SGLTrainer"), ("HALF", "HALFTrainer")):
+        t = get_trainer(dict(SGL_TRAINER_CONFIG, name=trainer_name), ds, get_model(dict(SGL_CONFIG, name=name), ds))
+        model = t.model
+        n_keep = check_sgl_views(model)
+        if name == "SGL":
+            with torch.no_grad():
+                emb = t.params["embedding"][: model.n_users + model.n_items].detach()
+                rows["sgl_view"] = measure_spmm("SGL drop view", model.views["aug_adj1"], emb)
+        before = dict(model.views)
+        models[name] = zoo_model_run(name, t, ds, ev, card, t.batch_size)
+        check_sgl_views(model)
+        if any(same_csr(before[k], model.views[k]) for k in before):
+            raise AssertionError(f"{name}: a view did not change at the epoch end")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{name}.pt")
+            t._save_model(path)
+            saved = dict(model.views)
+            model.update_aug_adj(t.params)  # views of other draws
+            t._load_model(path)
+        if not all(same_csr(saved[k], model.views[k]) for k in saved):
+            raise AssertionError(f"{name}: the views rebuilt after the reload differ from the saved ones")
+        models[name]["view_pairs_kept"] = n_keep
+        log(f"{name}: {len(saved)} views of {n_keep} of {model.view_engine.n_pairs} pairs, symmetric; changed at the "
+            f"epoch end; rebuilt after a reload bit for bit")
+        del t, model
+
+    # (c) DOSE_aug2
+    t = get_trainer(dict(DOSE_TRAINER_CONFIG, n_epochs=1), ds, get_model(DOSE_AUG2_CONFIG, ds))
+    model, params = t.model, t.params
+    selection = check_selection(model, params, rng, negate=False)
+    first_update_ms = host_ms(lambda: model.update_aug_adj(params), 1)[0]
+    rows.update(check_aug_feat(model, params, rng))
+    models["DOSE_aug2"] = zoo_model_run("DOSE_aug2", t, ds, ev, card, t.batch_size)
+    params = t.params
+    pairs = model._cos_pairs(params, model.aug_num, False)
+    build = dict(n_users=model.n_users, n_items=model.n_items, user_dim=model.user_dim, n_cols=model.feat_n_cols)
+    epoch_end = {
+        "first_update_aug_adj_ms": first_update_ms,
+        "anneal_ms": host_ms(model.feat_mat_anneal, 1),
+        "selection_ms": host_ms(lambda: model._cos_pairs(params, model.aug_num, False), 3),
+        "view_build_ms": host_ms(lambda: model.view_engine.make_view_on_device(add_pairs=pairs), 3),
+        "aug_feat_build_ms": host_ms(
+            lambda: build_aug_feat_csr(model._aug_base, model.view_engine.train_keys, pairs, model.alpha, **build), 3
+        ),
+        "update_aug_adj_ms": host_ms(lambda: model.update_aug_adj(params), 3),
+    }
+    models["DOSE_aug2"].update(selection=selection, epoch_end=epoch_end)
+    log(f"DOSE_aug2 epoch end on {card}: {json.dumps(epoch_end)}")
+    del t, model
     return {"rows": rows, "models": models}
 
 
@@ -1394,7 +1615,37 @@ def main():
               "check block of rows by block of rows); launches: ItemKNN's evaluate",
               [zrows["itemknn_sim_t"]]),
     ]
-    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries]}))
+
+    # 10. the last four models on the same set
+    last = last_models_phase(ds, card, rng)
+    log("last models: " + json.dumps(last["models"]))
+    lrows, lmodels = last["rows"], last["models"]
+    max_err = max(max_err, *(lrows[k]["max_abs_err"] for k in (
+        "attention", "attention_transpose", "sgl_view", "aug_feat_dropout", "aug_feat_transpose_dropout")))
+    att_run, aug2_run = lmodels["AttIGCN"]["route_launches_run"], lmodels["DOSE_aug2"]["route_launches_run"]
+    last_entries = [
+        entry("spmm_csr_attention", lrows["attention"], att_run["attention"],
+              lmodels["AttIGCN"]["launches_per_step"]["attention"],
+              f"AttIGCN's aggregation: the feature matrix's structure with the {ATT_CONFIG['n_heads']}-head attention "
+              "as edge values @ the table (spmm_csr_values); library_ms: torch.sparse.mm with the attention folded "
+              "into its values; launches: AttIGCN's epoch and evaluate", [lrows["attention"]]),
+        entry("spmm_csr_attention_transpose", lrows["attention_transpose"], att_run["attention_transpose"],
+              lmodels["AttIGCN"]["launches_per_step"]["attention_transpose"],
+              "its backward d(table): the transpose CSR with the attention gathered into its edge order",
+              [lrows["attention_transpose"]]),
+        entry("spmm_csr_aug_feat_dropout", lrows["aug_feat_dropout"], aug2_run["aug_feat"],
+              lmodels["DOSE_aug2"]["launches_per_step"]["aug_feat"],
+              f"DOSE_aug2's view input: the augmented feature matrix (train + the {DOSE_AUG2_CONFIG['aug_num']} "
+              f"selected pairs, rebuilt each epoch) under in-kernel dropout (p {DOSE_AUG2_CONFIG['dropout']}); "
+              "launches: DOSE_aug2's epoch and evaluate", [lrows["aug_feat_dropout"]]),
+        entry("spmm_csr_aug_feat_transpose_dropout", lrows["aug_feat_transpose_dropout"],
+              aug2_run["aug_feat_transpose"], lmodels["DOSE_aug2"]["launches_per_step"]["aug_feat_transpose"],
+              "its backward on the transpose CSR under the same mask", [lrows["aug_feat_transpose_dropout"]]),
+    ]
+    last_entries[0].update(d_values_max_abs_err=lrows["d_values_max_abs_err"],
+                           step_peak_bytes=lmodels["AttIGCN"]["step_peak_bytes"])
+    view["detail"].append(lrows["sgl_view"])
+    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries]}))
     print(
         json.dumps(
             {

@@ -25,9 +25,12 @@ Ported so far: the serving path (datasets, graph builders, node rankings,
 LightGCN/IGCN/IMF representations, full-catalog and inductive evaluation),
 the training path (the BPR sampler, the losses, BasicTrainer/BPRTrainer/
 IGCNTrainer with Adam, early stopping and checkpoints), whose backward runs
-the same kernel on the transpose layouts, and the DOSE family (12 of its 13
-variants, their contrastive views as symmetric CSRs rebuilt on the device at
-every epoch end, the cosine top-k selection, InfoNCE and the DOSE trainers).
+the same kernel on the transpose layouts, the DOSE family (its 13 variants,
+their contrastive views as symmetric CSRs rebuilt on the device at every
+epoch end, the cosine top-k selection, InfoNCE and the DOSE trainers), and
+every other model and trainer of the JAX package (the grids' baselines,
+AttIGCN's attention aggregation through the kernel with learned edge values,
+SGL and HALF).
 """
 
 __version__ = "0.1.0"

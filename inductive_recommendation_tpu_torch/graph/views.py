@@ -29,9 +29,15 @@ No counterpart, replaced by the view CSR: ``EdgeView``, ``BakedView`` and
 and ``ViewEngine.make_view``, the host builder (``:456-520``): the port has
 no host fallback, and ``keep_mask_from_drop_pairs_on_device`` also serves
 for the host ``keep_mask_from_drop_pairs`` (``:626-638``). The pair keys are
-int64, so the 32-bit-key fallbacks of ``:557-593`` are not needed. Not ported yet (only DOSE_aug2 uses them): the
-rectangular feature-matrix deltas, ``device_make_feat_delta`` /
-``feat_delta_host`` and the rectangular delta SpMMs (``:215-422,730-868``).
+int64, so the 32-bit-key fallbacks of ``:557-593`` are not needed.
+
+DOSE_aug2's feature matrix over train plus the selected pairs is one
+rectangular CSR and its transpose, rebuilt on the device at every epoch end
+(:func:`build_aug_feat_csr`), so that its products, forward and backward
+under the in-kernel dropout, are the hand-written SpMM. It replaces the
+fixed-budget rectangular delta: ``device_make_feat_delta`` /
+``feat_delta_host`` (``:730-868``) and the delta SpMMs with their chunked
+structures (``:215-422``).
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, csr_on_device
+from inductive_recommendation_tpu_torch.graph.build import build_feat_matrix
+from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, csr_on_device, with_annealed_values
 
 
 def _draw_generator(seed: int, counter: int, device) -> torch.Generator:
@@ -161,4 +168,59 @@ def build_view_csr(engine: ViewEngine, keep: torch.Tensor, delta) -> CsrSpMM:
     degree = torch.bincount(rows, minlength=n)
     d_inv = torch.pow(torch.clamp(degree.to(torch.float64), min=1.0), -0.5)
     vals = (d_inv[rows] * d_inv[cols]).to(torch.float32)
-    return csr_on_device(rows, cols, vals, (n, n), symmetric=True, view=True)
+    return csr_on_device(rows, cols, vals, (n, n), symmetric=True, route="view")
+
+
+# -- DOSE_aug2's augmented feature matrix --------------------------------------------
+
+
+def aug_feat_base(train_pairs, n_users, n_items, user_map, item_map, device) -> dict:
+    """The static train part of the augmented feature matrix, on ``device``
+    once: the COO of ``build_feat_matrix`` over the deduplicated
+    ``train_pairs`` with the core maps (``rows``, ``cols``, ``counts``), its
+    row sums (``row_sum``) and the maps themselves (int64, -1 off the core)."""
+    row, col, counts, row_sum = build_feat_matrix(train_pairs, n_users, n_items, user_map, item_map)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    return {
+        "rows": put(row, torch.int64), "cols": put(col, torch.int64), "counts": put(counts, torch.float32),
+        "row_sum": put(row_sum, torch.float32),
+        "user_map": put(user_map, torch.int64), "item_map": put(item_map, torch.int64),
+    }
+
+
+def build_aug_feat_csr(base: dict, train_keys, add_pairs, alpha: float, *, n_users: int, n_items: int,
+                       user_dim: int, n_cols: int):
+    """-> (the feature matrix over train plus ``add_pairs`` as a CSR with its
+    transpose, with IGCN's weights at ``alpha``; its unweighted row sums),
+    on the device (JAX ``device_make_feat_delta``, reference
+    model.py:935-978).
+
+    The selected pairs are deduplicated and those already in train dropped
+    (int64 keys u * n_items + i against the sorted ``train_keys``). Each
+    remaining pair (u, i) adds (u, user_dim + item_map[i]) where item i is
+    in the core and (n_users + i, user_map[u]) where user u is, each with
+    value 1, and 1 to its row's sum. The forward (rows x cols) and the
+    transpose (cols x rows) are built from the same triples, so their edge
+    ids agree and a dropout seed drops the same edges both ways; their
+    launches count under the route ``aug_feat``."""
+    n_rows = n_users + n_items
+    rows, cols, vals = base["rows"], base["cols"], base["counts"]
+    add = torch.as_tensor(add_pairs, device=rows.device).to(torch.int64).reshape(-1, 2)
+    keys = torch.unique(add[:, 0] * n_items + add[:, 1])
+    if train_keys.shape[0]:
+        pos = torch.clamp(torch.searchsorted(train_keys, keys), max=train_keys.shape[0] - 1)
+        keys = keys[train_keys[pos] != keys]
+    au, ai = keys // n_items, keys % n_items
+    im, um = base["item_map"][ai], base["user_map"][au]
+    e1, e2 = im >= 0, um >= 0
+    d_rows = torch.cat([au[e1], n_users + ai[e2]])
+    d_cols = torch.cat([user_dim + im[e1], um[e2]])
+    row_sum = base["row_sum"] + torch.bincount(d_rows, minlength=n_rows).to(torch.float32)
+    rows, cols = torch.cat([rows, d_rows]), torch.cat([cols, d_cols])
+    vals = torch.cat([vals, torch.ones(d_rows.shape[0], dtype=torch.float32, device=vals.device)])
+    transpose = csr_on_device(cols, rows, vals, (n_cols, n_rows), transposed=True, route="aug_feat")
+    mat = csr_on_device(rows, cols, vals, (n_rows, n_cols), transpose=transpose, route="aug_feat")
+    return with_annealed_values(mat, row_sum, alpha), row_sum

@@ -12,7 +12,10 @@ Each view is one symmetric CSR rebuilt on the device at every epoch end
 (``graph/views.py``), so a view's propagation is the hand-written SpMM,
 forward and backward. A DOSE_aug training step runs 16 products: IGCN's 8,
 one more feature product under its own dropout draw for the view, the view's
-n_layers products and their backward.
+n_layers products and their backward. DOSE_aug2 also rebuilds, at every
+epoch end, the feature matrix over train plus the selected pairs as one
+rectangular CSR with its transpose (``graph.views.build_aug_feat_csr``),
+which feeds its view's propagation.
 
 The JAX package's documented divergences from the reference are kept: one
 exact global cosine top-k; ``DOSE_aug.update_aug_adj`` regenerates the aug
@@ -20,9 +23,6 @@ graph; ``DOSE_aug_drop2`` has an ``update_aug_adj``; the selection uses
 eval-mode representations; ``DOSE_aug4`` keeps the top ``aug_num`` pairs with
 cos >= pai. A config's ``taugh`` is ignored, as the reference ignores it
 (model.py:564 builds InfoNCE at its temperature 0.1).
-
-Not ported yet: DOSE_aug2, which also rebuilds the feature matrix over the
-augmented graph and needs the rectangular feature-matrix delta.
 """
 
 from __future__ import annotations
@@ -30,11 +30,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from inductive_recommendation_tpu_torch.graph import graph_rank_nodes, sym_normalized_adjacency
-from inductive_recommendation_tpu_torch.graph.views import ViewEngine, random_keep_mask_on_device, random_pairs_on_device
+from inductive_recommendation_tpu_torch.graph import graph_aug_rank_nodes, graph_rank_nodes, sym_normalized_adjacency
+from inductive_recommendation_tpu_torch.graph.views import (
+    ViewEngine,
+    aug_feat_base,
+    build_aug_feat_csr,
+    random_keep_mask_on_device,
+    random_pairs_on_device,
+)
 from inductive_recommendation_tpu_torch.models.igcn import IGCN
-from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mean
+from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mean, spmm_csr
 from inductive_recommendation_tpu_torch.ops.cosine_topk import blockwise_cosine_topk
+from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed, spmm_csr_dropout
 from inductive_recommendation_tpu_torch.train.losses import info_nce
 
 
@@ -190,10 +197,15 @@ class _DOSEBase(IGCN):
             self._device_key(), n_pairs=n_pairs, n_keep=int(n_pairs * rate), seed=self._aug_seed, device=self.device
         )
 
+    def _view_x0(self, params, training, generator):
+        """The layer-0 input of a view's propagation (DOSE_aug2 feeds its
+        augmented feature matrix here)."""
+        return self.inductive_rep_layer(params, training=training, generator=generator)
+
     def view_users(self, params, key, users, training, generator):
         """User rows of the representation propagated over view ``key``; the
         feature-matrix dropout is drawn anew for each view (model.py:488-501)."""
-        x0 = self.inductive_rep_layer(params, training=training, generator=generator)
+        x0 = self._view_x0(params, training, generator)
         return propagate_mean(self.views[key], x0, self.n_layers)[users]
 
     # -- forward ---------------------------------------------------------------
@@ -219,6 +231,101 @@ class DOSE_aug(_DOSEBase):
 
     def _make_view(self, key, params):
         return self.view_engine.make_view_on_device(add_pairs=self._cos_pairs(params, self.aug_num, True))
+
+
+class DOSE_aug2(DOSE_aug):
+    """DOSE_aug whose selection takes the highest-cosine pairs
+    (model.py:1034-1051 has no negation) and which also rebuilds, at every
+    epoch end, the feature matrix over train plus those pairs
+    (model.py:935-978) at the alpha then in force: ``aug_feat``, one
+    rectangular CSR with its transpose built on the device
+    (``graph.views.build_aug_feat_csr``), the layer-0 input of the view's
+    propagation. Until the first update that input comes from the main
+    ``feat``, which is the same matrix (the JAX package seeds its aug feature
+    matrix with an all-in-train, hence empty, delta).
+
+    With ``feature_ratio`` < 1 the augmented matrix's core is selected once,
+    from a ranking over the first augmented graph (``graph_aug_rank_nodes``,
+    model.py:941), at the main core's sizes; a checkpoint keeps it, and
+    ``attach_dataset`` extends it with -1 for new nodes."""
+
+    def _make_view(self, key, params):
+        self._last_aug_pairs = self._cos_pairs(params, self.aug_num, False)
+        return self.view_engine.make_view_on_device(add_pairs=self._last_aug_pairs)
+
+    def _update_views(self, params):
+        super()._update_views(params)
+        self._update_aug_feat()
+
+    def _aug_core_maps(self):
+        """The core maps of the augmented matrix: the main ones at
+        feature_ratio 1; else selected from the first augmented graph, with
+        as many users and items as the main core (the shared table's rows)."""
+        if self.feature_ratio >= 1.0:
+            return self.user_map, self.item_map
+        if not hasattr(self, "aug_user_map"):
+            ranked_u, ranked_i = graph_aug_rank_nodes(
+                self.dataset, self.ranking_metric, self._last_aug_pairs.cpu().numpy()
+            )
+            um = np.full(self.n_users, -1, dtype=np.int64)
+            um[ranked_u[: self.user_dim]] = np.arange(self.user_dim)
+            im = np.full(self.n_items, -1, dtype=np.int64)
+            im[ranked_i[: self.item_dim]] = np.arange(self.item_dim)
+            self.aug_user_map, self.aug_item_map = um, im
+        return self.aug_user_map, self.aug_item_map
+
+    def _update_aug_feat(self):
+        if self._aug_base is None:
+            user_map, item_map = self._aug_core_maps()
+            self._aug_base = aug_feat_base(self._dedup_train, self.n_users, self.n_items, user_map, item_map,
+                                           self.device)
+        self.aug_feat, self.aug_row_sum = build_aug_feat_csr(
+            self._aug_base, self.view_engine.train_keys, self._last_aug_pairs, self.alpha,
+            n_users=self.n_users, n_items=self.n_items, user_dim=self.user_dim, n_cols=self.feat_n_cols,
+        )
+
+    def _build_graph_buffers(self, dataset):
+        # (also in IGCN.__init__) a restore or attach_dataset rebuilds the
+        # layouts: the augmented matrix's train part is stale, and until the
+        # next update the main feat serves
+        self._aug_base = None
+        self.aug_feat = self.aug_row_sum = None
+        super()._build_graph_buffers(dataset)
+
+    def attach_dataset(self, dataset):
+        if hasattr(self, "aug_user_map"):
+            um = np.full(dataset.n_users, -1, dtype=np.int64)
+            um[: len(self.aug_user_map)] = self.aug_user_map
+            im = np.full(dataset.n_items, -1, dtype=np.int64)
+            im[: len(self.aug_item_map)] = self.aug_item_map
+            self.aug_user_map, self.aug_item_map = um, im
+        super().attach_dataset(dataset)
+
+    def checkpoint_aux(self):
+        aux = dict(super().checkpoint_aux())
+        if hasattr(self, "aug_user_map"):
+            # selected once, from the first augmented graph: a restore must
+            # not select again from a later epoch's pairs
+            aux["aug_user_map"] = np.asarray(self.aug_user_map)
+            aux["aug_item_map"] = np.asarray(self.aug_item_map)
+        return aux
+
+    def restore_aux(self, aux):
+        if not aux:
+            return
+        aux = dict(aux)
+        if "aug_user_map" in aux:
+            self.aug_user_map = np.asarray(aux.pop("aug_user_map"))
+            self.aug_item_map = np.asarray(aux.pop("aug_item_map"))
+        super().restore_aux(aux)
+
+    def _view_x0(self, params, training, generator):
+        if self.aug_feat is None:
+            return super()._view_x0(params, training, generator)
+        emb = params["embedding"][: self.feat_n_cols]
+        if training and self.dropout > 0.0:
+            return spmm_csr_dropout(self.aug_feat, emb, dropout_seed(generator), self.dropout)
+        return spmm_csr(self.aug_feat, emb)
 
 
 class DOSE_aug3(_DOSEBase):

@@ -16,7 +16,9 @@ layout is plain CSR. It keeps the bucketed layout's contract:
   ``A^T @ g`` runs the same kernel; a symmetric layout is its own transpose.
 
 Gradients flow to the dense operand only (``torch.autograd.Function``s around
-the kernel): edge values are graph buffers, not parameters.
+the kernel): edge values are graph buffers, not parameters. The one
+exception is :func:`spmm_csr_values`, whose edge values are an argument
+(AttIGCN's attention) and get a gradient too.
 
 Edge dropout (``spmm_csr_dropout``) keeps edge e with its value scaled by
 1/(1-p) when ``u(seed, eid[e]) >= p``, with u from a counter-based Philox
@@ -48,8 +50,11 @@ class CsrSpMM:
     DOSE view); a per-edge scale or dropout is then refused, since
     (A o S)^T != A o S in general. Otherwise ``transpose`` holds A^T
     (``transposed=True`` there), or None for a layout built by hand, which
-    then has no backward. ``view=True`` marks a per-epoch DOSE view
-    (``graph/views.py``), whose launches are counted apart."""
+    then has no backward. ``route`` names a layout whose launches are
+    counted apart (:func:`route_key`): ``"view"`` for a per-epoch DOSE view
+    (``graph/views.py``), ``"aug_feat"`` for DOSE_aug2's augmented feature
+    matrix, ``"attention"`` for a values layout (:func:`values_layout`),
+    whose ``t_pos`` maps each edge of the transpose to its position here."""
 
     row_ptr: torch.Tensor  # int32 [n_rows + 1]
     col: torch.Tensor  # int32 [nnz]
@@ -60,7 +65,12 @@ class CsrSpMM:
     symmetric: bool = False
     transpose: CsrSpMM | None = None
     transposed: bool = False
-    view: bool = False
+    route: str | None = None
+    t_pos: torch.Tensor | None = None  # int64 [nnz], values layouts only
+
+    @property
+    def view(self) -> bool:
+        return self.route == "view"
 
     @property
     def shape(self):
@@ -80,7 +90,7 @@ class CsrSpMM:
 
     def edge_rows(self) -> torch.Tensor:
         """int32 [nnz] row of every edge."""
-        return row_of_edges(self.row_ptr)
+        return row_of_edges(self.row_ptr, self.nnz)
 
 
 def _one_side(row, col, val, eid, n_rows, n_cols, device, **flags) -> CsrSpMM:
@@ -126,7 +136,8 @@ def csr_on_device(rows, cols, vals, shape, **flags) -> CsrSpMM:
     """CSR of COO triples already on a device (torch tensors), with rows
     sorted stably and explicit zeros dropped, built there with no host copy;
     ``eid`` is an edge's position in the triples. No transpose is built:
-    ``flags`` (``symmetric``, ``view``) say what the layout is."""
+    ``flags`` (``symmetric``, ``transposed``, ``route``) say what the layout
+    is."""
     keep = vals != 0
     eid = torch.nonzero(keep).flatten()
     rows, cols, vals = rows[keep], cols[keep], vals[keep]
@@ -145,16 +156,18 @@ def csr_on_device(rows, cols, vals, shape, **flags) -> CsrSpMM:
     )
 
 
-def row_of_edges(row_ptr: torch.Tensor) -> torch.Tensor:
+def row_of_edges(row_ptr: torch.Tensor, nnz: int | None = None) -> torch.Tensor:
+    """int32 [nnz] row of every edge; given ``nnz``, with no device-to-host
+    read of the output's size."""
     n_rows = row_ptr.shape[0] - 1
     rows = torch.arange(n_rows, dtype=torch.int32, device=row_ptr.device)
-    return torch.repeat_interleave(rows, torch.diff(row_ptr))
+    return torch.repeat_interleave(rows, torch.diff(row_ptr), output_size=nnz)
 
 
 def spmm_csr_reference(row_ptr, col, val, x) -> torch.Tensor:
     """Plain PyTorch version: out[r] = sum over r's edges of val * x[col]."""
     out = torch.zeros(row_ptr.shape[0] - 1, x.shape[1], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, row_of_edges(row_ptr), x.index_select(0, col) * val[:, None])
+    return out.index_add_(0, row_of_edges(row_ptr, col.shape[0]), x.index_select(0, col) * val[:, None])
 
 
 # -- edge dropout: Philox4x32-10 of the edge id --------------------------------
@@ -241,9 +254,7 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
     ``EDGES_PER_CHUNK``: the chunks, then the rows cut by a chunk boundary;
     one launch otherwise. ``spmm_csr_cuda.launches`` counts the launches of
     both kernels, and ``spmm_csr_cuda.route_launches`` the same launches by
-    layout side and dropout (``forward``, ``transpose``, ``forward_dropout``,
-    ``transpose_dropout``, and ``view`` for a DOSE view, forward and backward
-    alike). Raises on anything the kernels do not take."""
+    :func:`route_key`. Raises on anything the kernels do not take."""
     val = mat.val if val is None else val
     tensors = {"row_ptr": mat.row_ptr, "col": mat.col, "val": val, "x": x}
     if drop is not None:
@@ -278,10 +289,7 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
         carry = torch.empty(chunks, 2, d, dtype=torch.float32, device=x.device)
         cut_row = torch.empty(chunks, dtype=torch.int32, device=x.device)
     seed, p = (0, 0.0) if drop is None else drop
-    if mat.view:
-        route = "view"
-    else:
-        route = ("transpose" if mat.transposed else "forward") + ("" if drop is None else "_dropout")
+    route = route_key(mat, drop)
     lib = _build.load("spmm_csr")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -308,12 +316,30 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
     return out
 
 
+# the keys of spmm_csr_cuda.route_launches
+ROUTES = (
+    "forward", "transpose", "forward_dropout", "transpose_dropout", "view",
+    "attention", "attention_transpose", "aug_feat", "aug_feat_transpose",
+)
+
+
+def route_key(mat: CsrSpMM, drop=None) -> str:
+    """The route a product on ``mat`` counts under: the layout side and the
+    dropout (``forward``, ``transpose``, ``forward_dropout``,
+    ``transpose_dropout``) for a layout with no ``route``; else the route,
+    plus ``_transpose`` on the transpose side, with or without dropout
+    (``view``, forward and backward alike since a view is symmetric;
+    ``attention`` / ``attention_transpose``; ``aug_feat`` /
+    ``aug_feat_transpose``)."""
+    if mat.route is None:
+        return ("transpose" if mat.transposed else "forward") + ("" if drop is None else "_dropout")
+    return mat.route + ("_transpose" if mat.transposed else "")
+
+
 def reset_launch_counts():
     """Set ``spmm_csr_cuda.launches`` and every route's count to 0."""
     spmm_csr_cuda.launches = 0
-    spmm_csr_cuda.route_launches = dict.fromkeys(
-        ("forward", "transpose", "forward_dropout", "transpose_dropout", "view"), 0
-    )
+    spmm_csr_cuda.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 reset_launch_counts()
@@ -399,3 +425,65 @@ def with_annealed_values(mat: CsrSpMM, row_sum: torch.Tensor, alpha: float) -> C
     if t is not None:
         t = dataclasses.replace(t, val=t.val * w[t.col.long()])
     return dataclasses.replace(mat, val=mat.val * w[mat.edge_rows().long()], transpose=t)
+
+
+# -- products with learned edge values -------------------------------------------
+
+
+def values_layout(mat: CsrSpMM, route: str = "attention") -> CsrSpMM:
+    """``mat``'s structure as a layout for :func:`spmm_csr_values`: values 1
+    on both sides (the structure is a mask; the product takes its values as
+    an argument), the launches counted under ``route``, and ``t_pos``, the
+    position in the forward layout of each edge of the transpose, found once
+    from the edge ids (JAX ``attention_spmm.py::build_dv_slot_tables``).
+    ``mat`` must carry its transpose (``symmetric=False``)."""
+    if mat.symmetric:
+        raise ValueError("a values layout needs a layout built with symmetric=False")
+    t = mat.T
+    pos_of_eid = torch.zeros(int(mat.eid.max()) + 1 if mat.nnz else 0, dtype=torch.int64, device=mat.col.device)
+    pos_of_eid[mat.eid.long()] = torch.arange(mat.nnz, device=mat.col.device)
+    transpose = dataclasses.replace(t, val=torch.ones_like(t.val), route=route)
+    return dataclasses.replace(
+        mat, val=torch.ones_like(mat.val), route=route, transpose=transpose, t_pos=pos_of_eid[t.eid.long()]
+    )
+
+
+class _ValuesProduct(torch.autograd.Function):
+    """out = A_v @ x with the edge values v an input: grad_x = A_v^T @ g, the
+    kernel on the transpose layout with v gathered into its edge order
+    (``t_pos``); grad_v[e] = g[row_e] . x[col_e], a gather and a row dot
+    (JAX ``attention_spmm.py::_bilinear_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, values, mat):
+        ctx.mat = mat
+        ctx.save_for_backward(x, values)
+        return _product(dataclasses.replace(mat, val=values), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mat, (x, values) = ctx.mat, ctx.saved_tensors
+        g = g.contiguous()
+        d_x = d_values = None
+        if ctx.needs_input_grad[0]:
+            d_x = _product(dataclasses.replace(mat.T, val=values[mat.t_pos]), g)
+        if ctx.needs_input_grad[1]:
+            rows = mat.edge_rows().long()
+            d_values = (g.index_select(0, rows) * x.index_select(0, mat.col.long())).sum(-1)
+        return d_x, d_values, None
+
+
+def spmm_csr_values(mat: CsrSpMM, x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """out[r] = sum over r's edges e of values[e] * x[col_e]: ``mat``'s
+    structure with fp32 ``values`` [nnz] in its edge order, differentiable in
+    ``x`` and ``values``. Needs a :func:`values_layout` for a gradient in
+    ``x``. A CUDA ``x`` runs the hand-written kernel with ``values`` as the
+    edge values (or raises); a CPU ``x`` runs :func:`spmm_csr_reference`."""
+    _check_operand(mat, x)
+    if values.shape != (mat.nnz,):
+        raise ValueError(f"values must be [nnz={mat.nnz}], got {tuple(values.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or values.requires_grad):
+        if x.requires_grad and mat.t_pos is None:
+            raise ValueError("a gradient in x needs a values layout; build it with values_layout")
+        return _ValuesProduct.apply(x, values, mat)
+    return _product(dataclasses.replace(mat, val=values), x)

@@ -1,6 +1,6 @@
 """Training: losses, checkpoints and the trainers (BasicTrainer, BPRTrainer,
-IGCNTrainer, IDCFTrainer, BCETrainer, MLTrainer and the DOSE trainers) on one
-device."""
+IGCNTrainer, IDCFTrainer, BCETrainer, MLTrainer, SGLTrainer, HALFTrainer and
+the DOSE trainers) on one device."""
 
 from inductive_recommendation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, info_nce, multinomial_ll_loss
@@ -13,9 +13,11 @@ from inductive_recommendation_tpu_torch.train.trainer import (
     DOSEaugTrainer,
     DOSEdropTrainer,
     DOSEtestTrainer,
+    HALFTrainer,
     IDCFTrainer,
     IGCNTrainer,
     MLTrainer,
+    SGLTrainer,
     get_trainer,
 )
 
@@ -27,9 +29,11 @@ __all__ = [
     "DOSEaugTrainer",
     "DOSEdropTrainer",
     "DOSEtestTrainer",
+    "HALFTrainer",
     "IDCFTrainer",
     "IGCNTrainer",
     "MLTrainer",
+    "SGLTrainer",
     "TRAINERS",
     "aux_bpr_w",
     "bce_losses",

@@ -20,8 +20,7 @@ weight decay): the update of ``optax.adam`` at its defaults, up to fp32
 rounding.
 
 Not ported: the mesh, SGD (no ported configuration uses it),
-``eval_train_every_epoch``, the summary writer, and ``SGLTrainer`` /
-``HALFTrainer`` (their models are not ported yet).
+``eval_train_every_epoch`` and the summary writer.
 """
 
 from __future__ import annotations
@@ -243,7 +242,8 @@ class BPRTrainer(BasicTrainer):
 class ContrastiveBPRTrainer(BPRTrainer):
     """BPR + L2 + ``contrastive_reg`` times the mean of the fifth,
     contrastive output of the model's ``bpr_forward`` (the loss of the JAX
-    package's ``SGLTrainer``, trainer.py:472-511 there); no epoch end."""
+    package's ``SGLTrainer``, trainer.py:472-511 there); no epoch end
+    (``SGLTrainer`` adds one)."""
 
     def __init__(self, trainer_config, dataset, model):
         super().__init__(trainer_config, dataset, model)
@@ -251,6 +251,20 @@ class ContrastiveBPRTrainer(BPRTrainer):
 
     def _objective(self, out):
         return super()._objective(out) + self.contrastive_reg * out[4].mean()
+
+
+class SGLTrainer(ContrastiveBPRTrainer):
+    """SGL's trainer (JAX trainer.py:472-529): the contrastive BPR loss, and
+    at every epoch end the model's drop views regenerated."""
+
+    def train_one_epoch(self):
+        loss = super().train_one_epoch()
+        self.model.update_aug_adj(self.params)
+        return loss
+
+
+class HALFTrainer(SGLTrainer):
+    """The same loss and epoch end (JAX trainer.py:531-532)."""
 
 
 class IDCFTrainer(ContrastiveBPRTrainer):
@@ -412,7 +426,7 @@ class DOSEtestTrainer(DOSEaugTrainer):
 TRAINERS = {
     cls.__name__: cls
     for cls in (
-        BasicTrainer, BPRTrainer, IGCNTrainer, IDCFTrainer, BCETrainer, MLTrainer,
+        BasicTrainer, BPRTrainer, IGCNTrainer, IDCFTrainer, BCETrainer, MLTrainer, SGLTrainer, HALFTrainer,
         DOSEaugTrainer, DOSEdropTrainer, DOSEtestTrainer,
     )
 }

@@ -33,6 +33,7 @@ from inductive_recommendation_tpu.data.dataset import AuxiliaryDataset as JaxAux
 from inductive_recommendation_tpu.data.dataset import BasicDataset as JaxBasicDataset
 from inductive_recommendation_tpu.data.dataset import quick_synthetic_dataset
 from inductive_recommendation_tpu.eval.evaluator import Evaluator as JaxEvaluator
+from inductive_recommendation_tpu.models import MODELS as JAX_MODELS
 from inductive_recommendation_tpu.train import losses as JL
 from inductive_recommendation_tpu_torch import get_model, get_trainer
 from inductive_recommendation_tpu_torch.models import DOSE_MODELS, params_from_jax
@@ -303,14 +304,15 @@ def test_dose_trainer_epochs_match_jax(ds, monkeypatch, name, trainer_name):
 
 
 def test_registry_builds_the_dose_family(ds):
-    """get_model builds the 12 variants and IGCN at feature_ratio < 1,
-    get_trainer the three DOSE trainers; DOSE_aug2 raises, naming why; the
-    reference's DOSE_drop2 + IGCNTrainer pairing trains without the
-    contrastive term."""
+    """get_model builds the 13 variants, the JAX package's, and IGCN at
+    feature_ratio < 1, get_trainer the three DOSE trainers; DOSE_aug2 steps
+    with DOSEaugTrainer; the reference's DOSE_drop2 + IGCNTrainer pairing
+    trains without the contrastive term."""
     assert {"DOSEaugTrainer", "DOSEdropTrainer", "DOSEtestTrainer"} <= set(TRAINERS)
-    assert len(DOSE_MODELS) == 12
-    with pytest.raises(NotImplementedError, match="feature-matrix delta"):
-        get_model(_cfg("DOSE_aug2"), ds, device="cpu")
+    assert len(DOSE_MODELS) == 13
+    assert {cls.__name__ for cls in DOSE_MODELS} == {n for n in JAX_MODELS if n.startswith(("DOSE", "TEST"))}
+    aug2 = get_trainer(_tcfg("DOSEaugTrainer"), ds, get_model(_cfg("DOSE_aug2", dropout=0.3), ds, device="cpu"))
+    assert torch.isfinite(aug2.step())
     model = get_model(_cfg("DOSE_drop2", feature_ratio=0.8, dropout=0.3), ds, device="cpu")
     assert (model.user_map < 0).sum() > 0
     trainer = get_trainer(_tcfg("IGCNTrainer", n_epochs=1), ds, model)

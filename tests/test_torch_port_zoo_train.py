@@ -32,7 +32,7 @@ from inductive_recommendation_tpu.train import losses as JL
 from inductive_recommendation_tpu_torch import get_model, get_trainer
 from inductive_recommendation_tpu_torch.configs import grids
 from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset as port_quick_synthetic_dataset
-from inductive_recommendation_tpu_torch.models import MODELS, NOT_PORTED, flatten_params, params_from_jax
+from inductive_recommendation_tpu_torch.models import MODELS, flatten_params, params_from_jax
 from inductive_recommendation_tpu_torch.train import TRAINERS, save_checkpoint
 from inductive_recommendation_tpu_torch.train import trainer as trainer_module
 
@@ -338,16 +338,25 @@ def test_bce_trainer_phase_switches_match_jax(ds, monkeypatch, tmp_path):
 # -- registry, grids, every grid row ------------------------------------------------------
 
 
-def test_registry_covers_the_grids():
-    """The port holds every JAX model but DOSE_aug2, SGL, HALF and AttIGCN,
-    which raise NotImplementedError naming the ROADMAP, and every trainer
-    but SGLTrainer and HALFTrainer."""
-    assert set(JAX_MODELS) - set(MODELS) == set(NOT_PORTED) == {"DOSE_aug2", "SGL", "HALF", "AttIGCN"}
-    assert set(JAX_TRAINERS) - set(TRAINERS) == {"SGLTrainer", "HALFTrainer"}
-    ds = port_quick_synthetic_dataset(20, 10, 100)
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model({"name": name}, ds, device="cpu")
+@pytest.mark.parametrize(
+    "name, trainer_name", [("AttIGCN", "IGCNTrainer"), ("SGL", "SGLTrainer"), ("HALF", "HALFTrainer"),
+                           ("DOSE_aug2", "DOSEaugTrainer")]
+)
+def test_registry_covers_the_grids(name, trainer_name):
+    """The port holds every JAX model and every JAX trainer; each of the
+    four models ported last builds and steps once on the CPU with its
+    trainer."""
+    assert set(JAX_MODELS) == set(MODELS)
+    assert set(JAX_TRAINERS) == set(TRAINERS)
+    ds = port_quick_synthetic_dataset(40, 30, 600, seed=1)
+    cfg = {"name": name, "embedding_size": 8, "n_layers": 2, "dropout": 0.1, "feature_ratio": 1.0, "n_heads": 2,
+           "aug_num": 20}
+    trainer = get_trainer({"name": trainer_name, "optimizer": "Adam", "lr": 1e-3, "l2_reg": 1e-4, "aux_reg": 0.01,
+                           "contrastive_reg": 0.1, "n_epochs": 1, "batch_size": 64, "topks": [20]},
+                          ds, get_model(cfg, ds, device="cpu"))
+    before = {k: v.detach().clone() for k, v in trainer.params.items()}
+    assert torch.isfinite(trainer.step())
+    assert any(not torch.equal(before[k], v) for k, v in trainer.params.items())
 
 
 @pytest.mark.parametrize("fn", GRIDS)
