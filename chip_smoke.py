@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``inductive_recommendation_tpu_torch``) on one
-CUDA card: the IGCN serving and training paths and DOSE training at full
-width, through the port's CUDA kernel.
+CUDA card: the IGCN serving and training paths, DOSE training, every grid
+model at full width through the port's CUDA kernel, and the front door (a
+raw dataset preprocessed and a grid row run by the command line).
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
@@ -95,21 +96,47 @@ Phases, each of which raises on failure (the exit code is then not 0):
    plus the injected entries, the same kept edges both ways, both products
    under dropout against float64), and the epoch end's selection, view and
    augmented-matrix build times.
+11. the front door, in a temporary directory. (a) The native graph core
+   (``native/graph_core.cpp``) builds and loads. (b) A raw
+   Gowalla_totalCheckins.txt at the SNAP loc-Gowalla totals (107,092 users,
+   1,280,969 places, 6,442,892 check-ins) is written from the seed. (c)
+   ``kcore_masks`` on the whole file's distinct pairs and
+   ``parse_gowalla_file`` on its first 200,000 lines equal their plain
+   versions. (d) ``python -m inductive_recommendation_tpu_torch --preprocess
+   gowalla`` in a subprocess writes ``data/Gowalla/time`` (10-core, split
+   0.7/0.1/0.2): users x items equal the 10-core's, ``parse_adjacency_file``
+   equals its plain version on train.txt. (e) The command line's ``main``
+   runs the Gowalla grid's IGCN row (index 2) for one epoch with
+   ``--stage test --inductive`` at 90% of the users and items: its JSON line
+   parses and is finite, best val NDCG@20 beats the random-init model's of
+   the same seed, the SpMM launches are exactly 16 a step + 8 a ``get_rep``
+   (by route), the best checkpoint reloads to the line's test metrics
+   within 1e-6; (f) so does the model saved in the reference's ``.pth``
+   format and imported with ``import_reference_checkpoint``; (g) a
+   ``utils.profiling.trace`` of 10 steps holds ``spmm_chunk_kernel`` events.
+   Step median, examples/s, epoch s, ``evaluate`` ms and the six inductive
+   NDCG@20 are logged.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
 serving path and read just after, and again around the training runs of
-phases 7 and 8 and each model's run in phases 9 and 10. The last lines are
+phases 7 and 8, each model's run in phases 9 and 10 and the command line's
+run of phase 11. The last lines are
 one JSON object of kernel numbers and then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
+import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -117,8 +144,10 @@ import numpy as np
 import torch
 
 from inductive_recommendation_tpu_torch import get_model, get_trainer
+from inductive_recommendation_tpu_torch import main as cli
+from inductive_recommendation_tpu_torch import native
 from inductive_recommendation_tpu_torch.configs import get_gowalla_config
-from inductive_recommendation_tpu_torch.data import BasicDataset, quick_synthetic_dataset
+from inductive_recommendation_tpu_torch.data import BasicDataset, get_dataset, quick_synthetic_dataset
 from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
 from inductive_recommendation_tpu_torch.graph.views import build_aug_feat_csr
 from inductive_recommendation_tpu_torch.models import params_from_jax
@@ -138,6 +167,8 @@ from inductive_recommendation_tpu_torch.ops import (
 from inductive_recommendation_tpu_torch.ops.attention_spmm import fused_kv_attention
 from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values, reset_launch_counts
 from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
+from inductive_recommendation_tpu_torch.train.import_reference import import_reference_checkpoint
+from inductive_recommendation_tpu_torch.utils import StepTimer, trace
 from inductive_recommendation_tpu_torch.utils.profiles import dense_profiles
 
 SEED = 0
@@ -185,6 +216,18 @@ STEP_LAUNCHES = {
     "DOSE_aug2": {"forward": 12, "forward_dropout": 2, "transpose_dropout": 2, "view": 12, "aug_feat": 2,
                   "aug_feat_transpose": 2},
 }
+# phase 11: a raw Gowalla file at the published SNAP loc-Gowalla totals,
+# preprocessed and run by the command line (the grid's IGCN row, index 2, its
+# relative dataset path, the CLI's default seed), with the native routines
+# against their plain versions (the numpy parser on a prefix: loadtxt of the
+# whole file takes minutes)
+GOWALLA_USERS, GOWALLA_ITEMS, GOWALLA_CHECKINS = 107_092, 1_280_969, 6_442_892
+GOWALLA_TIMES = ("2009-02-01T00:00:00", "2010-11-01T00:00:00")
+PARSE_PREFIX_LINES = 200_000
+CLI_ROW, CLI_SEED, CLI_MIN_INTER, CLI_SPLIT = 2, 2021, 10, (0.7, 0.1, 0.2)
+GRID_PATH = "data/Gowalla/time"
+TRACE_STEPS = 10
+REPO = os.path.dirname(os.path.abspath(__file__))
 TOPKS = [20]
 TEST_BATCH = 512
 N_NEW = 1000
@@ -1377,6 +1420,307 @@ def last_models_phase(ds, card, rng) -> dict:
     return {"rows": rows, "models": models}
 
 
+def write_gowalla_tsv(path, rng, n_users, n_items, n_checkins, chunk=500_000):
+    """A Gowalla_totalCheckins.txt (``user\\tISO-8601 time\\tlat\\tlon\\titem``)
+    of ``n_checkins`` lines: users drawn ∝ u^-0.6 and items ∝ i^-0.8 (as
+    ``SyntheticDataset``), times uniform over ``GOWALLA_TIMES``, one place per
+    item; a (user, item) pair may repeat, and the parser keeps its earliest
+    time."""
+    u_w = np.arange(1, n_users + 1, dtype=np.float64) ** -0.6
+    i_w = np.arange(1, n_items + 1, dtype=np.float64) ** -0.8
+    users = rng.choice(n_users, size=n_checkins, p=u_w / u_w.sum())
+    items = rng.choice(n_items, size=n_checkins, p=i_w / i_w.sum())
+    t0, t1 = (np.datetime64(t, "s").astype(np.int64) for t in GOWALLA_TIMES)
+    times = rng.integers(t0, t1, size=n_checkins).astype("datetime64[s]")
+    lat = [f"{x:.6f}" for x in rng.uniform(-60.0, 70.0, n_items)]
+    lon = [f"{x:.6f}" for x in rng.uniform(-180.0, 180.0, n_items)]
+    with open(path, "w") as f:
+        for s in range(0, n_checkins, chunk):
+            u, i = users[s : s + chunk].tolist(), items[s : s + chunk].tolist()
+            t = np.datetime_as_string(times[s : s + chunk]).tolist()
+            f.write("".join(f"{a}\t{b}Z\t{lat[c]}\t{lon[c]}\t{c}\n" for a, b, c in zip(u, t, i)))
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for stream in self.streams:
+            stream.write(s)
+        return len(s)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def check_equal_arrays(what, got, want):
+    for g, w in zip(got, want):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{what}: the native routine and its plain version differ")
+
+
+def split_counts(out_path):
+    """(users, items, {split: pairs}) of written train/val/test.txt files."""
+    pairs, n_users, n_items = {}, None, 0
+    for split in ("train", "val", "test"):
+        flat, offs = native.parse_adjacency_file(os.path.join(out_path, f"{split}.txt"))
+        pairs[split] = len(flat)
+        n_users = len(offs) - 1
+        n_items = max(n_items, int(flat.max()) + 1)
+    return n_users, n_items, pairs
+
+
+def run_cli(argv, n_layers):
+    """``main(argv)`` of the command line, in this process, with its trainer's
+    steps (``StepTimer``), epochs and evaluations timed and its inductive
+    slices kept; the SpMM launch counts are set to 0 just before and read
+    just after. -> dict of what the run printed and measured."""
+    made, timer, epoch_s, eval_ms, slices = {}, StepTimer(), [], [], {}
+    real_get_trainer = cli.get_trainer
+
+    def instrumented(config, dataset, model):
+        trainer = real_get_trainer(config, dataset, model)
+        real_step, real_epoch, real_eval = trainer.step, trainer.train_one_epoch, trainer.evaluator.evaluate
+        real_inductive = trainer.inductive_eval
+
+        def step(*batch):
+            timer.start()
+            loss = real_step(*batch)
+            timer.stop(loss)
+            return loss
+
+        def epoch():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = real_epoch()
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t0)
+            return loss
+
+        def evaluate(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_eval(*args, **kwargs)
+            torch.cuda.synchronize()
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def inductive(*args, **kwargs):
+            slices.update(real_inductive(*args, **kwargs))
+            return slices
+
+        trainer.step, trainer.train_one_epoch, trainer.evaluator.evaluate = step, epoch, evaluate
+        trainer.inductive_eval = inductive
+        made["trainer"] = trainer
+        return trainer
+
+    printed = io.StringIO()
+    cli.get_trainer = instrumented
+    try:
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            t0 = time.perf_counter()
+            reset_launch_counts()  # the command line's run starts here
+            result = cli.main(argv)
+            torch.cuda.synchronize()
+            launches, routes = spmm_csr_cuda.launches, dict(spmm_csr_cuda.route_launches)  # and ends here
+            run_s = time.perf_counter() - t0
+    finally:
+        cli.get_trainer = real_get_trainer
+    trainer = made["trainer"]
+    for name in ("step", "train_one_epoch", "inductive_eval"):
+        delattr(trainer, name)
+    del trainer.evaluator.evaluate
+    return {
+        "trainer": trainer, "result": result, "line": printed.getvalue().strip().splitlines()[-1],
+        "launches": launches, "routes": {k: v for k, v in routes.items() if v}, "run_s": run_s,
+        "step_s": list(timer.times), "step_p50_ms": timer.p50_ms, "epoch_s": epoch_s, "evaluate_ms": eval_ms,
+        "inductive_ndcg20": {tag: m["NDCG"][20] for tag, m in slices.items()},
+        "products_per_get_rep": 1 + n_layers,
+    }
+
+
+def reloaded_test_metrics(trainer, checkpoint):
+    trainer._load_model(checkpoint)
+    return trainer.eval("test")[1]
+
+
+def front_door_phase(card, per_step, rng) -> dict:
+    """Phase 11: the native graph core, the preprocessing of a raw Gowalla file
+    at the published size through the command line, and the Gowalla grid's
+    IGCN row run by the command line, its checkpoint reloaded and re-imported
+    from the reference's format, and a trace of its steps. ``per_step``: an
+    IGCN step's SpMM launches by route (phase 7)."""
+    out = {"card": card}
+    # (a) the library, built from the port's own copy of the source
+    if not native.native_available() or not native.library_path().exists():
+        raise AssertionError(f"the native graph core did not build or load ({native.library_path()})")
+    log(f"native graph core: {native.library_path().relative_to(REPO)}")
+    _, model_cfg, trainer_cfg = grid_row("IGCN")
+    with tempfile.TemporaryDirectory(prefix="front_door_") as work:
+        # (b) the raw file
+        raw_dir = os.path.join(work, "raw")
+        os.makedirs(raw_dir)
+        raw = os.path.join(raw_dir, "Gowalla_totalCheckins.txt")
+        t0 = time.perf_counter()
+        write_gowalla_tsv(raw, rng, GOWALLA_USERS, GOWALLA_ITEMS, GOWALLA_CHECKINS)
+        out["write_s"], out["raw_bytes"] = time.perf_counter() - t0, os.path.getsize(raw)
+        log(f"raw Gowalla file: {GOWALLA_CHECKINS} check-ins of {GOWALLA_USERS} users x {GOWALLA_ITEMS} places, "
+            f"{out['raw_bytes']} bytes, written in {out['write_s']:.2f} s")
+
+        # (c) native against plain: the k-core on the whole file's distinct
+        # pairs, the parser on a prefix
+        t0 = time.perf_counter()
+        users, items, ts = native.parse_gowalla_file(raw)
+        out["parse_s"] = time.perf_counter() - t0
+        if len(users) != GOWALLA_CHECKINS:
+            raise AssertionError(f"parsed {len(users)} check-ins of {GOWALLA_CHECKINS}")
+        _, u = np.unique(users, return_inverse=True)
+        _, i = np.unique(items, return_inverse=True)
+        n_u, n_i = int(u.max()) + 1, int(i.max()) + 1
+        pairs = np.unique(u * n_i + i)
+        t0 = time.perf_counter()
+        core = native.kcore_masks(pairs // n_i, pairs % n_i, n_u, n_i, CLI_MIN_INTER)
+        out["kcore_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check_equal_arrays("kcore_masks", core, native.kcore_masks_reference(pairs // n_i, pairs % n_i, n_u, n_i,
+                                                                             CLI_MIN_INTER))
+        out["kcore_plain_s"] = time.perf_counter() - t0
+        prefix = os.path.join(work, "prefix.txt")
+        with open(raw) as f, open(prefix, "w") as g:
+            g.writelines(itertools.islice(f, PARSE_PREFIX_LINES))
+        got = native.parse_gowalla_file(prefix)
+        check_equal_arrays("parse_gowalla_file", got, native.parse_gowalla_reference(prefix))
+        check_equal_arrays("parse_gowalla_file prefix", got, (a[:PARSE_PREFIX_LINES] for a in (users, items, ts)))
+        log(f"native = plain: kcore_masks over {len(pairs)} distinct pairs ({int(core[0].sum())} x "
+            f"{int(core[1].sum())} kept; native {out['kcore_native_s']:.3f} s, plain {out['kcore_plain_s']:.3f} s); "
+            f"parse_gowalla_file on the first {PARSE_PREFIX_LINES} lines (whole file natively in "
+            f"{out['parse_s']:.2f} s)")
+        del users, items, ts, u, i, pairs
+
+        # (d) the preprocessing, as a user runs it
+        out_path = os.path.join(work, *GRID_PATH.split("/"))
+        cmd = [sys.executable, "-m", "inductive_recommendation_tpu_torch", "--preprocess", "gowalla", "--data-path",
+               raw_dir, "--out-path", out_path, "--min-inter", str(CLI_MIN_INTER), "--split", *map(str, CLI_SPLIT)]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=900)
+        out["preprocess_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"--preprocess exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        n_users, n_items, split_pairs = split_counts(out_path)
+        if (n_users, n_items) != (int(core[0].sum()), int(core[1].sum())):
+            raise AssertionError(f"the written split has {n_users} x {n_items}, the {CLI_MIN_INTER}-core "
+                                 f"{int(core[0].sum())} x {int(core[1].sum())}")
+        train_txt = os.path.join(out_path, "train.txt")
+        check_equal_arrays("parse_adjacency_file", native.parse_adjacency_file(train_txt),
+                           native.parse_adjacency_reference(train_txt))
+        out.update(n_users=n_users, n_items=n_items, split_pairs=split_pairs)
+        log(f"--preprocess: {out['preprocess_s']:.2f} s; {proc.stdout.strip()}; {n_users} users x {n_items} items "
+            f"after the {CLI_MIN_INTER}-core; pairs {split_pairs}; parse_adjacency_file = plain on train.txt")
+
+        # (e) the grid's IGCN row through the command line, from the work dir
+        n_old = (int(0.9 * n_users), int(0.9 * n_items))
+        argv = ["--grid", "gowalla", "--index", str(CLI_ROW), "--n-epochs", "1", "--stage", "test",
+                "--inductive", *map(str, n_old)]
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            run = run_cli(argv, model_cfg["n_layers"])
+            cli_check(run, model_cfg, trainer_cfg, per_step, n_users, n_items, work, out)
+        finally:
+            os.chdir(cwd)
+        trainer = run["trainer"]
+
+        # (g) a trace of 10 steps of the run's trainer
+        timer, logdir = StepTimer(), os.path.join(work, "trace")
+        with trace(logdir):
+            for _ in range(TRACE_STEPS):
+                timer.start()
+                timer.stop(trainer.step())
+        with open(os.path.join(logdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        chunks = [e for e in events if e.get("cat") == "kernel" and "spmm_chunk_kernel" in e.get("name", "")]
+        if not chunks:
+            raise AssertionError("the trace holds no spmm_chunk_kernel launch (spmm_csr_chunks)")
+        out["trace"] = {"steps": TRACE_STEPS, "spmm_chunk_kernel_events": len(chunks), "kernel_events":
+                        sum(e.get("cat") == "kernel" for e in events), "step_p50_ms": timer.p50_ms}
+        log(f"trace of {TRACE_STEPS} steps: {len(chunks)} spmm_chunk_kernel events (launched by spmm_csr_chunks; "
+            f"{sum(per_step.values()) // 2 * TRACE_STEPS} expected), {out['trace']['kernel_events']} kernel events; "
+            f"StepTimer p50 {timer.p50_ms:.3f} ms")
+    return out
+
+
+def cli_check(run, model_cfg, trainer_cfg, per_step, n_users, n_items, work, out):
+    """Phase 11 (e)-(f): the command line's line, launches, training and
+    checkpoint, and the checkpoint re-imported from the reference's format."""
+    result = run["result"]
+    if json.loads(run["line"]) != result:
+        raise AssertionError(f"the last printed line {run['line']!r} is not the run's result {result}")
+    values = [result[k] for k in ("best_val_ndcg", "test_ndcg@20", "test_recall@20")]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in values):
+        raise AssertionError(f"the JSON line's values are not finite: {result}")
+    trainer = run["trainer"]
+    n_steps, n_evals = len(run["step_s"]), len(run["evaluate_ms"])
+    if n_steps != trainer.steps_per_epoch:
+        raise AssertionError(f"{n_steps} steps ran, one epoch is {trainer.steps_per_epoch}")
+    expected = {r: n_steps * k for r, k in per_step.items() if k}
+    expected["forward"] = expected.get("forward", 0) + 2 * run["products_per_get_rep"] * n_evals
+    if run["routes"] != expected:
+        raise AssertionError(f"the run's launches {run['routes']}, expected {expected} ({n_steps} steps x {per_step} "
+                             f"+ {2 * run['products_per_get_rep']} a get_rep x {n_evals} evaluations)")
+    if not (trainer.save_path and os.path.exists(trainer.save_path)):
+        raise AssertionError(f"the best checkpoint {trainer.save_path} does not exist")
+
+    # a fresh model of the same seed: its NDCG at init, then the checkpoint
+    dataset = get_dataset({"name": "ProcessedDataset", "path": GRID_PATH})
+    config = dict(trainer_cfg, seed=CLI_SEED, n_epochs=1)
+    fresh = get_trainer(config, dataset, get_model(model_cfg, dataset))
+    init_ndcg = fresh.eval("val")[1]["NDCG"][20]
+    if not result["best_val_ndcg"] > init_ndcg:
+        raise AssertionError(f"best val NDCG@20 {result['best_val_ndcg']} does not beat the random-init {init_ndcg}")
+
+    def same_test_metrics(metrics, what):
+        for key, name in (("test_ndcg@20", "NDCG"), ("test_recall@20", "Recall")):
+            if abs(metrics[name][20] - result[key]) > 1e-6:
+                raise AssertionError(f"{what}: test {name}@20 {metrics[name][20]} != the run's {result[key]}")
+
+    same_test_metrics(reloaded_test_metrics(fresh, trainer.save_path), "the reloaded best checkpoint")
+
+    # (f) the model in the reference's format (model.py:4208-4220), imported
+    model, params = trainer.model, trainer.params
+    pth, ckpt = os.path.join(work, "igcn_reference.pth"), os.path.join(work, "igcn_imported.ckpt")
+    torch.save({
+        "sate_dict": {"embedding.weight": params["embedding"].detach().cpu(), "w": params["w"].detach().cpu()},
+        "user_map": {int(u): int(c) for u, c in enumerate(model.user_map) if c >= 0},
+        "item_map": {int(i): int(c) for i, c in enumerate(model.item_map) if c >= 0},
+        "alpha": float(model.alpha),
+    }, pth)
+    import_reference_checkpoint(pth, ckpt, n_users=model.n_users, n_items=model.n_items)
+    imported = get_trainer(config, dataset, get_model(model_cfg, dataset))
+    same_test_metrics(reloaded_test_metrics(imported, ckpt), "the reference-format checkpoint imported")
+
+    p50 = statistics.median(run["step_s"]) * 1e3
+    out["cli"] = {
+        "argv_inductive": [int(0.9 * n_users), int(0.9 * n_items)], "line": result, "run_s": run["run_s"],
+        "epoch_s": run["epoch_s"], "steps": n_steps, "step_ms_median": p50,
+        "examples_per_s": trainer.batch_size / p50 * 1e3, "evaluate_ms": run["evaluate_ms"],
+        "val_ndcg20_init": init_ndcg, "inductive_ndcg20": run["inductive_ndcg20"], "launches": run["launches"],
+        "route_launches": run["routes"],
+    }
+    log(f"command line, {CLI_ROW}: {result['model']} + {result['trainer']} on {n_users} x {n_items}: run "
+        f"{run['run_s']:.2f} s; epoch {run['epoch_s']} s, {n_steps} steps, step median {p50:.3f} ms "
+        f"({out['cli']['examples_per_s']:.0f} examples/s); evaluate ms {[round(t, 1) for t in run['evaluate_ms']]}; "
+        f"val NDCG@20 {init_ndcg:.6f} at init -> best {result['best_val_ndcg']:.6f}; launches {run['launches']} "
+        f"{run['routes']}; the reloaded checkpoint and the reference-format import give the test metrics "
+        f"{result['test_ndcg@20']:.6f} / {result['test_recall@20']:.6f}")
+    for tag, ndcg in run["inductive_ndcg20"].items():
+        log(f"  inductive NDCG@20 {tag}: {ndcg:.6f}")
+
+
 def main():
     # 1. card
     if not torch.cuda.is_available():
@@ -1645,6 +1989,12 @@ def main():
     last_entries[0].update(d_values_max_abs_err=lrows["d_values_max_abs_err"],
                            step_peak_bytes=lmodels["AttIGCN"]["step_peak_bytes"])
     view["detail"].append(lrows["sgl_view"])
+
+    # 11. the front door: the raw file, the preprocessing and the grid's IGCN
+    # row through the command line
+    front = front_door_phase(card, {r: k for r, k in train["launches_per_step"].items() if k}, rng)
+    log("front door: " + json.dumps(front))
+    kernel.update(launches_cli=front["cli"]["launches"], route_launches_cli=front["cli"]["route_launches"])
     print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries]}))
     print(
         json.dumps(

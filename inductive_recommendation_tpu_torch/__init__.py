@@ -30,7 +30,15 @@ their contrastive views as symmetric CSRs rebuilt on the device at every
 epoch end, the cosine top-k selection, InfoNCE and the DOSE trainers), and
 every other model and trainer of the JAX package (the grids' baselines,
 AttIGCN's attention aggregation through the kernel with learned edge values,
-SGL and HALF).
+SGL and HALF), the raw Gowalla/Yelp/Amazon preprocessing over the native
+k-core (``native/graph_core.cpp``, built with ``g++`` at first use), the
+reference's ``.pth`` and the JAX package's msgpack checkpoints, the run
+utilities and the command line:
+
+    python -m inductive_recommendation_tpu_torch --preprocess gowalla --data-path RAW --out-path data/Gowalla/time
+    python -m inductive_recommendation_tpu_torch --grid gowalla --index 2 --stage test
+
+Not ported yet: the multi-GPU layer (the mesh, ``--mesh``).
 """
 
 __version__ = "0.1.0"

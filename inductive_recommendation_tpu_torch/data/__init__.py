@@ -1,13 +1,18 @@
-"""Data layer: datasets as host data, the padded per-user matrices that
-evaluation places on a device, and the BPR sampler that draws training
-batches on the device."""
+"""Data layer: the raw parsers, the k-core filter and the chronological split,
+datasets as host data, the padded per-user matrices that evaluation places on
+a device, and the BPR sampler that draws training batches on the device."""
 
 from inductive_recommendation_tpu_torch.data.dataset import (
+    AmazonDataset,
     AuxiliaryDataset,
     BasicDataset,
+    GowallaDataset,
     ProcessedDataset,
+    SyntheticDataset,
+    YelpDataset,
     device_padded_from_lists,
     get_dataset,
+    output_data,
     pad_user_lists,
     quick_synthetic_dataset,
 )
@@ -18,8 +23,13 @@ from inductive_recommendation_tpu_torch.data.sampling import (
 )
 
 __all__ = [
+    "AmazonDataset",
     "AuxiliaryDataset",
     "BasicDataset",
+    "GowallaDataset",
+    "SyntheticDataset",
+    "YelpDataset",
+    "output_data",
     "SamplerState",
     "build_sampler_state",
     "sample_bpr_batch",

@@ -1,10 +1,15 @@
-"""Host-side graph builders and node rankings (numpy), and the DOSE
-contrastive views built on the device (``views``)."""
+"""Host-side graph builders and node rankings (numpy), the edge-set helpers
+of the drop/augment graphs, ``device_sym_normalize`` on the device, and the
+DOSE contrastive views built on the device (``views``)."""
 
 from inductive_recommendation_tpu_torch.graph.build import (
     aug_union_edges,
     bipartite_edges,
     build_feat_matrix,
+    device_sym_normalize,
+    drop_difference_edges,
+    drop_sample_edges,
+    drop_union_edges,
     feat_values_for_alpha,
     row_l1_normalize_values,
     sym_normalize_values,
@@ -22,6 +27,10 @@ __all__ = [
     "aug_union_edges",
     "bipartite_edges",
     "build_feat_matrix",
+    "device_sym_normalize",
+    "drop_difference_edges",
+    "drop_sample_edges",
+    "drop_union_edges",
     "feat_values_for_alpha",
     "graph_aug_rank_nodes",
     "graph_drop_rank_nodes",

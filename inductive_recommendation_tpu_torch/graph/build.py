@@ -10,11 +10,26 @@ Reference semantics reproduced:
 - self-loop + row-L1 norm (NGCF)                    model.py:4008-4014
 - IGCN template feature matrix + degree row powers  model.py:4139-4175
 - train ∪ injected pairs (DOSE views, rankings)     utils.py:71-88
+- random-subsample drop graph                       utils.py:91-103
+- union "drop" graph (the reference's sample is a
+  no-op, reproduced)                                utils.py:105-121
+- set-difference drop graph                         utils.py:123-141
+
+``device_sym_normalize`` is the one builder in torch: it normalizes a padded
+edge buffer on the buffer's own device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def _dedupe_edges(train_array: np.ndarray) -> np.ndarray:
+    """Unique (user, item) pairs, sorted (set semantics)."""
+    if len(train_array) == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    return np.unique(np.asarray(train_array, dtype=np.int64), axis=0)
 
 
 def bipartite_edges(train_array: np.ndarray, n_users: int, n_items: int):
@@ -64,6 +79,32 @@ def aug_union_edges(train_array: np.ndarray, aug_idx: np.ndarray) -> np.ndarray:
     keys = np.concatenate([train_array[:, 0] * n + train_array[:, 1], aug_idx[:, 0] * n + aug_idx[:, 1]])
     uniq = np.unique(keys)
     return np.stack([uniq // n, uniq % n], axis=1)
+
+
+def drop_sample_edges(train_array: np.ndarray, aug_rate: float, rng: np.random.Generator) -> np.ndarray:
+    """Random subsample keeping ``int(aug_rate * |E|)`` pairs (utils.py:91-103)."""
+    train_array = np.asarray(train_array, dtype=np.int64).reshape(-1, 2)
+    keep = rng.choice(len(train_array), size=int(len(train_array) * aug_rate), replace=False)
+    return train_array[keep]
+
+
+def drop_union_edges(train_array: np.ndarray, aug_idx: np.ndarray) -> np.ndarray:
+    """The reference's ``generate_drop_daj_mat2``: its ``random.sample`` result
+    is discarded (utils.py:110), so the graph is the deduplicated union."""
+    return aug_union_edges(train_array, aug_idx)
+
+
+def drop_difference_edges(train_array: np.ndarray, aug_idx: np.ndarray) -> np.ndarray:
+    """train \\ aug, deduplicated and sorted by key (utils.py:123-141)."""
+    train_array = np.asarray(train_array, dtype=np.int64).reshape(-1, 2)
+    aug_idx = np.asarray(aug_idx, dtype=np.int64).reshape(-1, 2)
+    if len(aug_idx) == 0:
+        return _dedupe_edges(train_array)
+    n = int(max(train_array[:, 1].max(initial=0), aug_idx[:, 1].max(initial=0))) + 1
+    train_keys = np.unique(train_array[:, 0] * n + train_array[:, 1])
+    aug_keys = np.unique(aug_idx[:, 0] * n + aug_idx[:, 1])
+    keep = train_keys[~np.isin(train_keys, aug_keys)]
+    return np.stack([keep // n, keep % n], axis=1)
 
 
 def row_l1_normalize_values(row, col, n_nodes: int, counts=None):
@@ -133,3 +174,13 @@ def feat_values_for_alpha(row, base_counts, row_sum, alpha: float):
     Works on numpy arrays and on torch tensors alike."""
     exponent = (alpha - 1.0) / 2.0 - 0.5
     return base_counts * row_sum[row] ** exponent
+
+
+def device_sym_normalize(row: torch.Tensor, col: torch.Tensor, edge_mask: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """D^-1/2 A D^-1/2 values of a padded edge buffer, on the tensors' device:
+    ``edge_mask`` is 1.0 for a live edge and 0.0 for padding, whose values
+    come out 0; the degree (the masked row counts) is clamped >= 1
+    (model.py:92)."""
+    degree = torch.zeros(n_nodes, dtype=edge_mask.dtype, device=edge_mask.device).index_add_(0, row, edge_mask)
+    d_inv = degree.clamp(min=1.0).pow(-0.5)
+    return edge_mask * d_inv[row] * d_inv[col]

@@ -14,7 +14,8 @@ the loop variable after the loop, model.py:3946-3955).
 
 The frozen table is a registered buffer, so the optimizer never sees it. It
 comes from ``pretrained_embedding`` or from ``lgcn_path``, a LightGCN
-checkpoint written by this package's ``save_checkpoint``.
+checkpoint written by this package's ``save_checkpoint`` or by the JAX
+package's (``train.checkpoint.load_checkpoint`` reads both).
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
-"""Training: losses, checkpoints and the trainers (BasicTrainer, BPRTrainer,
-IGCNTrainer, IDCFTrainer, BCETrainer, MLTrainer, SGLTrainer, HALFTrainer and
-the DOSE trainers) on one device."""
+"""Training: losses, checkpoints (the port's and the JAX package's msgpack),
+meters and the trainers (BasicTrainer, BPRTrainer, IGCNTrainer, IDCFTrainer,
+BCETrainer, MLTrainer, SGLTrainer, HALFTrainer and the DOSE trainers) on one
+device. ``train.import_reference`` converts the reference's ``.pth`` files."""
 
 from inductive_recommendation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, info_nce, multinomial_ll_loss
+from inductive_recommendation_tpu_torch.train.meters import AverageMeter
 from inductive_recommendation_tpu_torch.train.trainer import (
+    OPTIMIZERS,
     TRAINERS,
     BasicTrainer,
     BCETrainer,
@@ -22,6 +25,7 @@ from inductive_recommendation_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "AverageMeter",
     "BasicTrainer",
     "BCETrainer",
     "BPRTrainer",
@@ -33,6 +37,7 @@ __all__ = [
     "IDCFTrainer",
     "IGCNTrainer",
     "MLTrainer",
+    "OPTIMIZERS",
     "SGLTrainer",
     "TRAINERS",
     "aux_bpr_w",

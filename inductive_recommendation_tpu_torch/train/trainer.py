@@ -17,10 +17,20 @@ single device, no mesh; reference trainer.py:25-253).
 
 Adam is ``torch.optim.Adam`` at its defaults (betas 0.9/0.999, eps 1e-8, no
 weight decay): the update of ``optax.adam`` at its defaults, up to fp32
-rounding.
+rounding. SGD is ``torch.optim.SGD(lr)``, ``optax.sgd``'s plain step.
 
-Not ported: the mesh, SGD (no ported configuration uses it),
-``eval_train_every_epoch`` and the summary writer.
+``train(verbose, writer)`` logs to a duck-typed summary writer (anything with
+``add_scalar(tag, value, step)``) with the JAX package's tags
+(``{model}_{trainer}/{stage}_{metric}@{k}``, trainer.py:172-182 there). The
+train split is evaluated after each epoch only when a writer or the config's
+``eval_train_every_epoch`` asks for it, inside the printed epoch time, as the
+reference does unconditionally (trainer.py:73).
+
+A JAX msgpack checkpoint loads through ``_load_model`` (params and aux);
+its optimizer state does not (``load_state`` raises), since optax's Adam
+tree is not ``torch.optim.Adam``'s.
+
+Not ported yet: the mesh (the multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -34,10 +44,10 @@ import torch
 from inductive_recommendation_tpu_torch.data.dataset import AuxiliaryDataset
 from inductive_recommendation_tpu_torch.data.sampling import build_sampler_state, sample_bpr_batch
 from inductive_recommendation_tpu_torch.eval.evaluator import Evaluator
-from inductive_recommendation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from inductive_recommendation_tpu_torch.train.checkpoint import JAX_FORMAT, load_checkpoint, save_checkpoint
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, multinomial_ll_loss
 
-OPTIMIZERS = {"Adam": torch.optim.Adam}
+OPTIMIZERS = {"Adam": torch.optim.Adam, "SGD": torch.optim.SGD}
 
 
 def _epoch_mean(losses) -> float:
@@ -57,6 +67,9 @@ class BasicTrainer:
         self.n_epochs = trainer_config["n_epochs"]
         self.max_patience = trainer_config.get("max_patience", 50)
         self.val_interval = trainer_config.get("val_interval", 1)
+        # the reference evaluates the train split every epoch (trainer.py:73);
+        # here only when this is set or a writer consumes it
+        self.eval_train_every_epoch = bool(trainer_config.get("eval_train_every_epoch", False))
         self.batch_size = trainer_config.get("batch_size", 2048)
         self.epoch = 0
         self.best_ndcg = -np.inf
@@ -95,9 +108,23 @@ class BasicTrainer:
     def train_one_epoch(self) -> float:
         return _epoch_mean([self.step() for _ in range(self.steps_per_epoch)])
 
+    # -- logging (trainer.py:51-56) -----------------------------------------
+    def record(self, writer, stage, metrics, epoch=None):
+        epoch = self.epoch if epoch is None else epoch
+        for metric in metrics:
+            for k in self.topks:
+                writer.add_scalar(
+                    "{:s}_{:s}/{:s}_{:s}@{:d}".format(self.model.name, self.name, stage, metric, k),
+                    metrics[metric][k],
+                    epoch,
+                )
+
     # -- checkpoint helpers --------------------------------------------------
     @torch.no_grad()
     def _restore_params(self, saved):
+        missing = sorted(set(self.params) - set(saved))
+        if missing:
+            raise KeyError(f"the checkpoint lacks parameters {missing}; it has {sorted(saved)}")
         for name, p in self.params.items():
             p.copy_(saved[name])
 
@@ -133,6 +160,11 @@ class BasicTrainer:
 
     def load_state(self, path):
         payload = load_checkpoint(path)
+        if payload.get("format") == JAX_FORMAT:
+            raise ValueError(
+                f"{path} is a JAX msgpack checkpoint: its optax optimizer state cannot resume a torch optimizer; "
+                "load its parameters with _load_model and train on from there"
+            )
         self._restore_params(payload["params"])
         if self.optimizer is not None and "opt_state" in payload:
             self.optimizer.load_state_dict(payload["opt_state"])
@@ -149,14 +181,15 @@ class BasicTrainer:
             self.host_generator.set_state(ts["host_generator"])
 
     # -- main loop (trainer.py:58-113) --------------------------------------
-    def train(self, verbose=True):
+    def train(self, verbose=True, writer=None):
         """Trains up to ``n_epochs`` (from ``self.epoch``, so a restored state
         resumes), validates every ``val_interval`` epochs, keeps the best
         checkpoint under ``checkpoints/`` in the working directory and
         reloads it at the end. Returns the best validation NDCG. A model
         that does not train (ItemKNN, Popularity) is validated once and its
         NDCG@topks[min(5, len - 1)] returned (trainer.py:64 of the
-        reference)."""
+        reference). ``writer`` gets each epoch's loss and train metrics and
+        each validation's metrics."""
         if not self.model.trainable:
             results, metrics = self.eval("val")
             if verbose:
@@ -169,6 +202,11 @@ class BasicTrainer:
             start_time = time.time()
             loss = self.train_one_epoch()
             self.epoch = epoch + 1
+            if writer or self.eval_train_every_epoch:
+                _, train_metrics = self.eval("train")
+            if writer:
+                writer.add_scalar("{:s}_{:s}/train_loss".format(self.model.name, self.name), loss, epoch)
+                self.record(writer, "train", train_metrics, epoch=epoch)
             if verbose:
                 print(
                     "Epoch {:d}/{:d}, Loss: {:.6f}, Time: {:.3f}s".format(
@@ -182,6 +220,8 @@ class BasicTrainer:
             results, metrics = self.eval("val")
             if verbose:
                 print("Validation result. {:s}Time: {:.3f}s".format(results, time.time() - start_time))
+            if writer:
+                self.record(writer, "validation", metrics, epoch=epoch)
             ndcg = metrics["NDCG"][self.topks[min(4, len(self.topks) - 1)]]
             if ndcg > self.best_ndcg:
                 if self.save_path and os.path.exists(self.save_path):
