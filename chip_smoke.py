@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``inductive_recommendation_tpu_torch``) on one
 CUDA card: the IGCN serving and training paths, DOSE training, every grid
-model at full width through the port's CUDA kernel, and the front door (a
-raw dataset preprocessed and a grid row run by the command line).
+model at full width through the port's CUDA kernel, the front door (a raw
+dataset preprocessed and a grid row run by the command line) and the
+multi-GPU layer at world 1 (``chip_mesh.py`` runs it across cards).
 
     python3 chip_smoke.py          # from the repo root, on a machine with a card
 
@@ -116,11 +117,41 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ``utils.profiling.trace`` of 10 steps holds ``spmm_chunk_kernel`` events.
    Step median, examples/s, epoch s, ``evaluate`` ms and the six inductive
    NDCG@20 are logged.
+12. the multi-GPU layer (``parallel/``) over NCCL on the same set. (a) The
+   process joins an NCCL group of one rank (one process holds one card;
+   NCCL refuses two ranks on one card)
+   over a file store in phase 11's directory, and a ('data', 'model') mesh
+   of (1, world). (b) A 4-way column split of the adjacency and of the
+   feature matrix (``build_edge_sharded_spmm``): every shard's CSR (over
+   the rows its edges span) and transpose through the kernel, the forward
+   partials placed at those rows and summed in shard order
+   against the float64 plain product (``check_product``'s bound plus 3
+   roundings), the transposes' rows against the whole transpose, both
+   also under dropout 0.3, where the shards' kept edges together are
+   exactly ``edge_uniform``'s on the whole matrix; each shard product's
+   time, byte bound and ``torch.sparse.mm`` on the same shard. (c)
+   ``EdgeShardedTrainer`` trains IGCN (the grid width, batch 2,048) for one
+   epoch at mesh (1, world): its first 20 losses equal a single-device
+   ``IGCNTrainer`` of the same seed within 1e-5 (same batches, same dropout
+   masks), val NDCG@20 beats the random-init model's, its launches are all
+   on the ``edge_shard`` routes and one step is 16 launches and 4
+   reduce-scatters, 4 all-gathers and 2 all-reduces; (d) the best
+   checkpoint, loaded by a single-device trainer, gives the mesh
+   evaluator's test metrics within 1e-6, and ``recommend`` and
+   ``sharded_recommend_all_users`` equal the single-device lists up to
+   ties; then the step's times, examples/s and one profiled step with the
+   NCCL kernels' device time. (e) A data-mode ``IGCNTrainer`` runs 50 steps
+   with the single-device trainer's losses within 1e-5. (f) ``torchrun
+   --standalone --nproc_per_node <cards> -m inductive_recommendation_tpu_torch
+   --grid gowalla --index 2 --mesh 1,<cards> --mesh-mode edge --n-epochs 1
+   --stage test`` in a subprocess in phase 11's directory: its JSON line is
+   finite and its launches by route (printed by rank 0) are exactly 16 a
+   step + 8 a ``get_rep`` on the ``edge_shard`` routes.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
 serving path and read just after, and again around the training runs of
-phases 7 and 8, each model's run in phases 9 and 10 and the command line's
-run of phase 11. The last lines are
+phases 7 and 8, each model's run in phases 9 and 10, the command line's
+run of phase 11 and the edge-mode epoch of phase 12. The last lines are
 one JSON object of kernel numbers and then ``{"ok": true, "device": {...}}``.
 """
 
@@ -142,6 +173,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from inductive_recommendation_tpu_torch import get_model, get_trainer
 from inductive_recommendation_tpu_torch import main as cli
@@ -149,6 +181,7 @@ from inductive_recommendation_tpu_torch import native
 from inductive_recommendation_tpu_torch.configs import get_gowalla_config
 from inductive_recommendation_tpu_torch.data import BasicDataset, get_dataset, quick_synthetic_dataset
 from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
+from inductive_recommendation_tpu_torch.graph import build_feat_matrix, sym_normalized_adjacency
 from inductive_recommendation_tpu_torch.graph.views import build_aug_feat_csr
 from inductive_recommendation_tpu_torch.models import params_from_jax
 from inductive_recommendation_tpu_torch.ops import (
@@ -166,6 +199,15 @@ from inductive_recommendation_tpu_torch.ops import (
 )
 from inductive_recommendation_tpu_torch.ops.attention_spmm import fused_kv_attention
 from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values, reset_launch_counts
+from inductive_recommendation_tpu_torch.parallel import (
+    build_edge_sharded_spmm,
+    init_distributed,
+    make_mesh,
+    reset_collective_counts,
+    sharded_recommend_all_users,
+)
+from inductive_recommendation_tpu_torch.parallel.collectives import counts as collective_counts
+from inductive_recommendation_tpu_torch.parallel.spmm import place_rows
 from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
 from inductive_recommendation_tpu_torch.train.import_reference import import_reference_checkpoint
 from inductive_recommendation_tpu_torch.utils import StepTimer, trace
@@ -227,6 +269,12 @@ PARSE_PREFIX_LINES = 200_000
 CLI_ROW, CLI_SEED, CLI_MIN_INTER, CLI_SPLIT = 2, 2021, 10, (0.7, 0.1, 0.2)
 GRID_PATH = "data/Gowalla/time"
 TRACE_STEPS = 10
+# phase 12: the multi-GPU layer; a 4-way split of the Gowalla-scale layouts
+# held against the whole product, the edge-mode losses compared with the
+# single-device trainer's for 20 steps, data mode's for 50
+SHARDS = 4
+MESH_STEPS_COMPARED = 20
+DATA_MODE_STEPS = 50
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOPKS = [20]
 TEST_BATCH = 512
@@ -415,7 +463,7 @@ def plain_product(blocks, x, drop=None, magnitude=False) -> torch.Tensor:
     return torch.cat(outs)
 
 
-def check_product(what, blocks, x, out, drop=None, other=None) -> dict:
+def check_product(what, blocks, x, out, drop=None, other=None, extra_roundings=0) -> dict:
     """Holds the kernel's ``out`` = A @ ``x`` (under ``drop``) against the
     plain version in float64, block of rows by block of rows, entry by entry:
 
@@ -429,8 +477,9 @@ def check_product(what, blocks, x, out, drop=None, other=None) -> dict:
     min(deg_r, E) + deg_r // E + 8, 2 to spare. A row whose only edges have x
     = 0 (IMCGAE's pad column) must come out exactly 0. A wrong or lost edge
     moves an entry by one term, about 1/deg_r of (|A| @ |x|): the check sees
-    it while deg_r * gamma(h_r) < 1 (``limit_over_mean_term``). Raises on the
-    first block past its limit. -> max abs err and max err / limit of
+    it while deg_r * gamma(h_r) < 1 (``limit_over_mean_term``). A sum of
+    partial products (the shards of phase 12) passes through
+    ``extra_roundings`` more. Raises on the first block past its limit. -> max abs err and max err / limit of
     ``out`` (and of ``other``, another result of the same product, such as
     ``torch.sparse.mm``'s, which is only reported)."""
     x64 = x.double()
@@ -441,6 +490,7 @@ def check_product(what, blocks, x, out, drop=None, other=None) -> dict:
         ref = plain_product([(r0, r1, m)], x64, drop)
         deg = torch.diff(m.row_ptr).double()[:, None]
         h = torch.clamp(deg, max=EDGES_PER_CHUNK) + torch.div(deg, EDGES_PER_CHUNK, rounding_mode="floor") + 8
+        h = h + extra_roundings
         gamma = h * U_FP32 / (1.0 - h * U_FP32)
         limit = gamma * plain_product([(r0, r1, m)], x64, drop, magnitude=True)
         res["limit_over_mean_term"] = max(res["limit_over_mean_term"], (deg * gamma).max().item())
@@ -1482,8 +1532,8 @@ def run_cli(argv, n_layers):
     made, timer, epoch_s, eval_ms, slices = {}, StepTimer(), [], [], {}
     real_get_trainer = cli.get_trainer
 
-    def instrumented(config, dataset, model):
-        trainer = real_get_trainer(config, dataset, model)
+    def instrumented(config, dataset, model, **mesh):
+        trainer = real_get_trainer(config, dataset, model, **mesh)
         real_step, real_epoch, real_eval = trainer.step, trainer.train_one_epoch, trainer.evaluator.evaluate
         real_inductive = trainer.inductive_eval
 
@@ -1548,109 +1598,109 @@ def reloaded_test_metrics(trainer, checkpoint):
     return trainer.eval("test")[1]
 
 
-def front_door_phase(card, per_step, rng) -> dict:
-    """Phase 11: the native graph core, the preprocessing of a raw Gowalla file
-    at the published size through the command line, and the Gowalla grid's
-    IGCN row run by the command line, its checkpoint reloaded and re-imported
-    from the reference's format, and a trace of its steps. ``per_step``: an
-    IGCN step's SpMM launches by route (phase 7)."""
+def front_door_phase(card, per_step, rng, work) -> dict:
+    """Phase 11, in the directory ``work``: the native graph core, the
+    preprocessing of a raw Gowalla file at the published size through the
+    command line, and the Gowalla grid's IGCN row run by the command line,
+    its checkpoint reloaded and re-imported from the reference's format, and
+    a trace of its steps. ``per_step``: an IGCN step's SpMM launches by route
+    (phase 7)."""
     out = {"card": card}
     # (a) the library, built from the port's own copy of the source
     if not native.native_available() or not native.library_path().exists():
         raise AssertionError(f"the native graph core did not build or load ({native.library_path()})")
     log(f"native graph core: {native.library_path().relative_to(REPO)}")
     _, model_cfg, trainer_cfg = grid_row("IGCN")
-    with tempfile.TemporaryDirectory(prefix="front_door_") as work:
-        # (b) the raw file
-        raw_dir = os.path.join(work, "raw")
-        os.makedirs(raw_dir)
-        raw = os.path.join(raw_dir, "Gowalla_totalCheckins.txt")
-        t0 = time.perf_counter()
-        write_gowalla_tsv(raw, rng, GOWALLA_USERS, GOWALLA_ITEMS, GOWALLA_CHECKINS)
-        out["write_s"], out["raw_bytes"] = time.perf_counter() - t0, os.path.getsize(raw)
-        log(f"raw Gowalla file: {GOWALLA_CHECKINS} check-ins of {GOWALLA_USERS} users x {GOWALLA_ITEMS} places, "
-            f"{out['raw_bytes']} bytes, written in {out['write_s']:.2f} s")
+    # (b) the raw file
+    raw_dir = os.path.join(work, "raw")
+    os.makedirs(raw_dir)
+    raw = os.path.join(raw_dir, "Gowalla_totalCheckins.txt")
+    t0 = time.perf_counter()
+    write_gowalla_tsv(raw, rng, GOWALLA_USERS, GOWALLA_ITEMS, GOWALLA_CHECKINS)
+    out["write_s"], out["raw_bytes"] = time.perf_counter() - t0, os.path.getsize(raw)
+    log(f"raw Gowalla file: {GOWALLA_CHECKINS} check-ins of {GOWALLA_USERS} users x {GOWALLA_ITEMS} places, "
+        f"{out['raw_bytes']} bytes, written in {out['write_s']:.2f} s")
 
-        # (c) native against plain: the k-core on the whole file's distinct
-        # pairs, the parser on a prefix
-        t0 = time.perf_counter()
-        users, items, ts = native.parse_gowalla_file(raw)
-        out["parse_s"] = time.perf_counter() - t0
-        if len(users) != GOWALLA_CHECKINS:
-            raise AssertionError(f"parsed {len(users)} check-ins of {GOWALLA_CHECKINS}")
-        _, u = np.unique(users, return_inverse=True)
-        _, i = np.unique(items, return_inverse=True)
-        n_u, n_i = int(u.max()) + 1, int(i.max()) + 1
-        pairs = np.unique(u * n_i + i)
-        t0 = time.perf_counter()
-        core = native.kcore_masks(pairs // n_i, pairs % n_i, n_u, n_i, CLI_MIN_INTER)
-        out["kcore_native_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        check_equal_arrays("kcore_masks", core, native.kcore_masks_reference(pairs // n_i, pairs % n_i, n_u, n_i,
-                                                                             CLI_MIN_INTER))
-        out["kcore_plain_s"] = time.perf_counter() - t0
-        prefix = os.path.join(work, "prefix.txt")
-        with open(raw) as f, open(prefix, "w") as g:
-            g.writelines(itertools.islice(f, PARSE_PREFIX_LINES))
-        got = native.parse_gowalla_file(prefix)
-        check_equal_arrays("parse_gowalla_file", got, native.parse_gowalla_reference(prefix))
-        check_equal_arrays("parse_gowalla_file prefix", got, (a[:PARSE_PREFIX_LINES] for a in (users, items, ts)))
-        log(f"native = plain: kcore_masks over {len(pairs)} distinct pairs ({int(core[0].sum())} x "
-            f"{int(core[1].sum())} kept; native {out['kcore_native_s']:.3f} s, plain {out['kcore_plain_s']:.3f} s); "
-            f"parse_gowalla_file on the first {PARSE_PREFIX_LINES} lines (whole file natively in "
-            f"{out['parse_s']:.2f} s)")
-        del users, items, ts, u, i, pairs
+    # (c) native against plain: the k-core on the whole file's distinct
+    # pairs, the parser on a prefix
+    t0 = time.perf_counter()
+    users, items, ts = native.parse_gowalla_file(raw)
+    out["parse_s"] = time.perf_counter() - t0
+    if len(users) != GOWALLA_CHECKINS:
+        raise AssertionError(f"parsed {len(users)} check-ins of {GOWALLA_CHECKINS}")
+    _, u = np.unique(users, return_inverse=True)
+    _, i = np.unique(items, return_inverse=True)
+    n_u, n_i = int(u.max()) + 1, int(i.max()) + 1
+    pairs = np.unique(u * n_i + i)
+    t0 = time.perf_counter()
+    core = native.kcore_masks(pairs // n_i, pairs % n_i, n_u, n_i, CLI_MIN_INTER)
+    out["kcore_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check_equal_arrays("kcore_masks", core, native.kcore_masks_reference(pairs // n_i, pairs % n_i, n_u, n_i,
+                                                                         CLI_MIN_INTER))
+    out["kcore_plain_s"] = time.perf_counter() - t0
+    prefix = os.path.join(work, "prefix.txt")
+    with open(raw) as f, open(prefix, "w") as g:
+        g.writelines(itertools.islice(f, PARSE_PREFIX_LINES))
+    got = native.parse_gowalla_file(prefix)
+    check_equal_arrays("parse_gowalla_file", got, native.parse_gowalla_reference(prefix))
+    check_equal_arrays("parse_gowalla_file prefix", got, (a[:PARSE_PREFIX_LINES] for a in (users, items, ts)))
+    log(f"native = plain: kcore_masks over {len(pairs)} distinct pairs ({int(core[0].sum())} x "
+        f"{int(core[1].sum())} kept; native {out['kcore_native_s']:.3f} s, plain {out['kcore_plain_s']:.3f} s); "
+        f"parse_gowalla_file on the first {PARSE_PREFIX_LINES} lines (whole file natively in "
+        f"{out['parse_s']:.2f} s)")
+    del users, items, ts, u, i, pairs
 
-        # (d) the preprocessing, as a user runs it
-        out_path = os.path.join(work, *GRID_PATH.split("/"))
-        cmd = [sys.executable, "-m", "inductive_recommendation_tpu_torch", "--preprocess", "gowalla", "--data-path",
-               raw_dir, "--out-path", out_path, "--min-inter", str(CLI_MIN_INTER), "--split", *map(str, CLI_SPLIT)]
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=900)
-        out["preprocess_s"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"--preprocess exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-        n_users, n_items, split_pairs = split_counts(out_path)
-        if (n_users, n_items) != (int(core[0].sum()), int(core[1].sum())):
-            raise AssertionError(f"the written split has {n_users} x {n_items}, the {CLI_MIN_INTER}-core "
-                                 f"{int(core[0].sum())} x {int(core[1].sum())}")
-        train_txt = os.path.join(out_path, "train.txt")
-        check_equal_arrays("parse_adjacency_file", native.parse_adjacency_file(train_txt),
-                           native.parse_adjacency_reference(train_txt))
-        out.update(n_users=n_users, n_items=n_items, split_pairs=split_pairs)
-        log(f"--preprocess: {out['preprocess_s']:.2f} s; {proc.stdout.strip()}; {n_users} users x {n_items} items "
-            f"after the {CLI_MIN_INTER}-core; pairs {split_pairs}; parse_adjacency_file = plain on train.txt")
+    # (d) the preprocessing, as a user runs it
+    out_path = os.path.join(work, *GRID_PATH.split("/"))
+    cmd = [sys.executable, "-m", "inductive_recommendation_tpu_torch", "--preprocess", "gowalla", "--data-path",
+           raw_dir, "--out-path", out_path, "--min-inter", str(CLI_MIN_INTER), "--split", *map(str, CLI_SPLIT)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=900)
+    out["preprocess_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"--preprocess exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    n_users, n_items, split_pairs = split_counts(out_path)
+    if (n_users, n_items) != (int(core[0].sum()), int(core[1].sum())):
+        raise AssertionError(f"the written split has {n_users} x {n_items}, the {CLI_MIN_INTER}-core "
+                             f"{int(core[0].sum())} x {int(core[1].sum())}")
+    train_txt = os.path.join(out_path, "train.txt")
+    check_equal_arrays("parse_adjacency_file", native.parse_adjacency_file(train_txt),
+                       native.parse_adjacency_reference(train_txt))
+    out.update(n_users=n_users, n_items=n_items, split_pairs=split_pairs)
+    log(f"--preprocess: {out['preprocess_s']:.2f} s; {proc.stdout.strip()}; {n_users} users x {n_items} items "
+        f"after the {CLI_MIN_INTER}-core; pairs {split_pairs}; parse_adjacency_file = plain on train.txt")
 
-        # (e) the grid's IGCN row through the command line, from the work dir
-        n_old = (int(0.9 * n_users), int(0.9 * n_items))
-        argv = ["--grid", "gowalla", "--index", str(CLI_ROW), "--n-epochs", "1", "--stage", "test",
-                "--inductive", *map(str, n_old)]
-        cwd = os.getcwd()
-        os.chdir(work)
-        try:
-            run = run_cli(argv, model_cfg["n_layers"])
-            cli_check(run, model_cfg, trainer_cfg, per_step, n_users, n_items, work, out)
-        finally:
-            os.chdir(cwd)
-        trainer = run["trainer"]
+    # (e) the grid's IGCN row through the command line, from the work dir
+    n_old = (int(0.9 * n_users), int(0.9 * n_items))
+    argv = ["--grid", "gowalla", "--index", str(CLI_ROW), "--n-epochs", "1", "--stage", "test",
+            "--inductive", *map(str, n_old)]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        run = run_cli(argv, model_cfg["n_layers"])
+        cli_check(run, model_cfg, trainer_cfg, per_step, n_users, n_items, work, out)
+    finally:
+        os.chdir(cwd)
+    trainer = run["trainer"]
 
-        # (g) a trace of 10 steps of the run's trainer
-        timer, logdir = StepTimer(), os.path.join(work, "trace")
-        with trace(logdir):
-            for _ in range(TRACE_STEPS):
-                timer.start()
-                timer.stop(trainer.step())
-        with open(os.path.join(logdir, "trace.json")) as f:
-            events = json.load(f)["traceEvents"]
-        chunks = [e for e in events if e.get("cat") == "kernel" and "spmm_chunk_kernel" in e.get("name", "")]
-        if not chunks:
-            raise AssertionError("the trace holds no spmm_chunk_kernel launch (spmm_csr_chunks)")
-        out["trace"] = {"steps": TRACE_STEPS, "spmm_chunk_kernel_events": len(chunks), "kernel_events":
-                        sum(e.get("cat") == "kernel" for e in events), "step_p50_ms": timer.p50_ms}
-        log(f"trace of {TRACE_STEPS} steps: {len(chunks)} spmm_chunk_kernel events (launched by spmm_csr_chunks; "
-            f"{sum(per_step.values()) // 2 * TRACE_STEPS} expected), {out['trace']['kernel_events']} kernel events; "
-            f"StepTimer p50 {timer.p50_ms:.3f} ms")
+    # (g) a trace of 10 steps of the run's trainer
+    timer, logdir = StepTimer(), os.path.join(work, "trace")
+    with trace(logdir):
+        for _ in range(TRACE_STEPS):
+            timer.start()
+            timer.stop(trainer.step())
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    chunks = [e for e in events if e.get("cat") == "kernel" and "spmm_chunk_kernel" in e.get("name", "")]
+    if not chunks:
+        raise AssertionError("the trace holds no spmm_chunk_kernel launch (spmm_csr_chunks)")
+    out["trace"] = {"steps": TRACE_STEPS, "spmm_chunk_kernel_events": len(chunks), "kernel_events":
+                    sum(e.get("cat") == "kernel" for e in events), "step_p50_ms": timer.p50_ms}
+    log(f"trace of {TRACE_STEPS} steps: {len(chunks)} spmm_chunk_kernel events (launched by spmm_csr_chunks; "
+        f"{sum(per_step.values()) // 2 * TRACE_STEPS} expected), {out['trace']['kernel_events']} kernel events; "
+        f"StepTimer p50 {timer.p50_ms:.3f} ms")
     return out
 
 
@@ -1719,6 +1769,259 @@ def cli_check(run, model_cfg, trainer_cfg, per_step, n_users, n_items, work, out
         f"{result['test_ndcg@20']:.6f} / {result['test_recall@20']:.6f}")
     for tag, ndcg in run["inductive_ndcg20"].items():
         log(f"  inductive NDCG@20 {tag}: {ndcg:.6f}")
+
+
+# -- phase 12: the multi-GPU layer -------------------------------------------------
+
+
+def shard_rows(name, coo, shape, x, g, drop):
+    """Phase 12 (b): ``coo`` cut into SHARDS column blocks, each block's CSR
+    (over the rows its edges span) and transpose through the kernel; the
+    forward partials, placed at those rows and summed in shard order, and
+    the transposes' rows, concatenated, are held against the whole
+    matrix's float64 plain version (the sum: ``check_product``'s bound plus
+    SHARDS - 1 roundings), under dropout ``drop`` = (seed, p) too, where the
+    union of the shards' kept edges must be exactly ``edge_uniform``'s on
+    the whole matrix. -> (shards, per-shard rows of times, max abs err)."""
+    whole = build_csr_spmm(*coo, shape, device=x.device)
+    shards = [build_edge_sharded_spmm(*coo, shape, SHARDS, s, device=x.device) for s in range(SHARDS)]
+    n_rows, n_cols, d = shape[0], shape[1], int(x.shape[1])
+    blk, rblk = shards[0].block, shards[0].row_block
+    x_pad = x.new_zeros(shards[0].n_cols_pad, d)
+    x_pad[:n_cols] = x
+    g_pad = g.new_zeros(shards[0].n_rows_pad, d)
+    g_pad[:n_rows] = g
+    if sum(sh.fwd.nnz for sh in shards) != whole.nnz:
+        raise AssertionError(f"{name}: the shards hold {[sh.fwd.nnz for sh in shards]} edges, the whole {whole.nnz}")
+    worst = 0.0
+    for dr in (None, drop):
+        total, rows_t = None, []
+        for s, sh in enumerate(shards):
+            part = place_rows(sh, spmm_csr_cuda(sh.fwd, x_pad[s * blk : (s + 1) * blk].contiguous(), drop=dr))
+            total = part if total is None else total + part
+            rows_t.append(spmm_csr_cuda(sh.bwd, g_pad[sh.row_lo : sh.row_hi], drop=dr))
+        torch.cuda.synchronize()
+        res = check_product(f"{name} {SHARDS} shards summed, dropout {dr}", row_blocks(whole, d), x, total[:n_rows],
+                            dr, extra_roundings=SHARDS - 1)
+        res_t = check_product(f"{name}^T {SHARDS} shards, dropout {dr}", row_blocks(whole.T, d), g,
+                              torch.cat(rows_t)[:n_cols], dr)
+        worst = max(worst, res["max_abs_err"], res_t["max_abs_err"])
+    seed, p = drop
+    kept = torch.cat([sh.fwd.eid[kept_by_kernel(sh.fwd.eid, seed, p) != 0] for sh in shards])
+    kept_t = torch.cat([sh.bwd.eid[kept_by_kernel(sh.bwd.eid, seed, p) != 0] for sh in shards])
+    want = whole.eid[edge_uniform(seed, whole.eid) >= p]
+    for what, got in (("forward", kept), ("transpose", kept_t)):
+        if not torch.equal(torch.sort(got).values, torch.sort(want).values):
+            raise AssertionError(f"{name} {what}: the shards keep {got.numel()} edges, the whole matrix {want.numel()}")
+    times = []
+    for s, sh in enumerate(shards):
+        xs = x_pad[s * blk : (s + 1) * blk].contiguous()
+        row = {"shard": s, "nnz": sh.fwd.nnz, "rows": [sh.row_lo, sh.row_hi], "cols": sh.fwd.n_cols}
+        gs = g_pad[sh.row_lo : sh.row_hi]
+        for side, mat, operand, dr in (("forward", sh.fwd, xs, None), ("transpose_dropout", sh.bwd, gs, drop)):
+            lib = torch.sparse_csr_tensor(mat.row_ptr, mat.col, mat.val if dr is None else
+                                          dropout_values(mat.val, mat.eid, *dr), size=mat.shape)
+            fns = (lambda m=mat, o=operand, dr=dr: spmm_csr_cuda(m, o, drop=dr),
+                   lambda l=lib, o=operand: torch.sparse.mm(l, o))
+            row[f"{side}_ms"] = median_ms(fns[0])
+            row[f"{side}_ms_windowed"], row[f"{side}_library_ms_windowed"] = windowed_ms(*fns)
+            row[f"{side}_bound_ms"], _ = spmm_bound_ms(mat, d, dropout=dr is not None)
+        times.append(row)
+    log(f"{name}: {SHARDS} shards of {[r['nnz'] for r in times]} edges ({blk} columns, {rblk} output rows each; "
+        f"the rows holding each shard's edges {[r['rows'] for r in times]}): "
+        f"partials summed and transposes against float64, with and without dropout {p}: max abs err {worst:.3g}; "
+        f"kept edges = edge_uniform's ({want.numel()} of {whole.nnz}); per shard (ms single / windowed / "
+        f"torch.sparse.mm windowed / bound): " + "; ".join(
+            f"{r['shard']}: fwd {r['forward_ms']:.4f} / {r['forward_ms_windowed']:.4f} / "
+            f"{r['forward_library_ms_windowed']:.4f} / {r['forward_bound_ms']:.4f}, T drop "
+            f"{r['transpose_dropout_ms']:.4f} / {r['transpose_dropout_ms_windowed']:.4f} / "
+            f"{r['transpose_dropout_library_ms_windowed']:.4f} / {r['transpose_dropout_bound_ms']:.4f}" for r in times))
+    return shards, x_pad, g_pad, times, worst
+
+
+def same_up_to_ties(what, rep, got, want, n_users, chunk=4096):
+    """Top-k lists ``got`` and ``want`` [n_users, k] of the representation
+    ``rep``: the scores at each rank agree within 1e-5, and the ids agree
+    wherever a rank is clear of its neighbours in ``want`` by 1e-4."""
+    got, want = (torch.as_tensor(a, device=rep.device).long() for a in (got, want))
+    clear_share = []
+    for u0 in range(0, n_users, chunk):
+        u = torch.arange(u0, min(u0 + chunk, n_users), device=rep.device)
+        ur = rep[u].double()[:, None, :]
+        sg = (ur * rep[n_users + got[u]].double()).sum(-1)
+        sw = (ur * rep[n_users + want[u]].double()).sum(-1)
+        if not bool(((sg - sw).abs() <= 1e-5).all()):
+            raise AssertionError(f"{what}: a rank's score differs by {(sg - sw).abs().max().item()}")
+        gap = (sw[:, :-1] - sw[:, 1:]).abs()
+        clear = torch.ones_like(sw, dtype=torch.bool)
+        clear[:, 1:] &= gap > 1e-4
+        clear[:, :-1] &= gap > 1e-4
+        if not torch.equal(got[u][clear], want[u][clear]):
+            raise AssertionError(f"{what}: the lists differ at a rank clear of ties")
+        clear_share.append(clear.double().mean().item())
+    return float(np.mean(clear_share))
+
+
+def mesh_phase(ds, card, rng, work) -> dict:
+    """Phase 12: the multi-GPU layer on the card, over NCCL."""
+    out = {"card": card}
+    # (a) the group: this process, on the card, NCCL
+    t0 = time.perf_counter()
+    init_distributed(init_method="file://" + os.path.join(work, "pg_store"))
+    world = dist.get_world_size()
+    mesh = make_mesh(1, world)
+    out["init_s"] = time.perf_counter() - t0
+    log(f"process group: {dist.get_backend()} over {world} rank(s) of {torch.cuda.device_count()} card(s); mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}; {out['init_s']:.2f} s")
+
+    # (b) 4-shard layouts of the adjacency and the feature matrix through the kernel
+    model = get_model(IGCN_CONFIG, ds)
+    n = ds.n_users + ds.n_items
+    d, p = IGCN_CONFIG["embedding_size"], IGCN_CONFIG["dropout"]
+    adj_coo = sym_normalized_adjacency(ds.train_array, ds.n_users, ds.n_items)
+    frow, fcol, counts, row_sum = build_feat_matrix(ds.train_array, ds.n_users, ds.n_items, model.user_map,
+                                                    model.item_map)
+    seed = int(rng.integers(0, 2**62))
+    x_feat = torch.as_tensor(rng.normal(0.0, 0.1, (model.feat_n_cols, d)), dtype=torch.float32, device=model.device)
+    g_rows = torch.as_tensor(rng.normal(0.0, 0.1, (n, d)), dtype=torch.float32, device=model.device)
+    with torch.no_grad():
+        x_adj = spmm_csr_cuda(model.feat, x_feat)
+        adj_shards, adj_x, _, adj_times, err_a = shard_rows("adjacency", adj_coo, (n, n), x_adj, g_rows, (seed, p))
+        feat_shards, _, feat_g, feat_times, err_f = shard_rows(
+            "feature matrix", (frow, fcol, counts), (n, model.feat_n_cols), x_feat, g_rows, (seed, p))
+        fwd_row = measure_spmm("adjacency shard 0 of 4", adj_shards[0].fwd, adj_x[: adj_shards[0].block].contiguous())
+        f0 = feat_shards[0]
+        t_row = measure_spmm("feature matrix shard 0 of 4, transpose, dropout", f0.bwd, feat_g[f0.row_lo : f0.row_hi],
+                             drop=(seed, p))
+    out.update(shard_times={"adjacency": adj_times, "feature_matrix": feat_times}, shard_max_abs_err=max(err_a, err_f))
+    del adj_shards, feat_shards
+
+    # (c) EdgeShardedTrainer: IGCN at mesh (1, world), one epoch, against the
+    # single-device trainer of the same seed
+    config = dict(TRAINER_CONFIG, n_epochs=1)
+    single = get_trainer(config, ds, get_model(IGCN_CONFIG, ds))
+    single_losses = [float(single.step()) for _ in range(DATA_MODE_STEPS)]
+    edge = get_trainer(config, ds, get_model(IGCN_CONFIG, ds), mesh=mesh, mesh_mode="edge")
+    init_ndcg = edge.eval("val")[1]["NDCG"][20]
+    reset_launch_counts()  # the mesh path starts here
+    reset_collective_counts()
+    by_epoch, epoch_s = train_recorded(edge, lambda: edge.train(verbose=True))
+    torch.cuda.synchronize()
+    run_routes, run_kinds = dict(spmm_csr_cuda.route_launches), dict(collective_counts.by_kind)  # and ends here
+    steps = np.concatenate(by_epoch)
+    diff = np.abs(steps[:MESH_STEPS_COMPARED] - single_losses[:MESH_STEPS_COMPARED])
+    if not (diff <= 1e-5 * np.maximum(1.0, np.abs(single_losses[:MESH_STEPS_COMPARED]))).all():
+        raise AssertionError(f"edge-mode losses {steps[:MESH_STEPS_COMPARED]} vs single-device {single_losses[:20]}")
+    final = edge.eval("val")[1]["NDCG"][20]
+    if not final > init_ndcg:
+        raise AssertionError(f"edge-mode val NDCG@20 {final} after the epoch, {init_ndcg} at init")
+    shard_routes = ("edge_shard", "edge_shard_dropout", "edge_shard_transpose", "edge_shard_transpose_dropout")
+    if min(run_routes[r] for r in shard_routes) == 0 or sum(v for r, v in run_routes.items() if r not in shard_routes):
+        raise AssertionError(f"the edge-mode run's launches {run_routes}")
+    if min(run_kinds.values()) == 0:
+        raise AssertionError(f"a kind of collective was not launched: {run_kinds}")
+    log(f"edge-mode IGCN, one epoch of {edge.steps_per_epoch} steps: the first {MESH_STEPS_COMPARED} losses within "
+        f"{diff.max():.3g} of the single-device trainer's; val NDCG@20 {init_ndcg:.6f} at init, {final:.6f} after; "
+        f"epoch s {epoch_s}; launches {run_routes}; collectives {run_kinds}")
+
+    # the best checkpoint into the single-device IGCN; (d) the mesh evaluator
+    # and the item-sharded recommend against the single-device ones, on the
+    # reloaded weights (before the timed steps below train them on)
+    mesh_metrics = edge.eval("test")[1]
+    loaded = get_trainer(config, ds, get_model(IGCN_CONFIG, ds))
+    loaded._load_model(edge.save_path)
+    one_metrics = loaded.eval("test")[1]
+    for name in mesh_metrics:
+        for k, v in mesh_metrics[name].items():
+            if abs(v - one_metrics[name][k]) > 1e-6:
+                raise AssertionError(f"test {name}@{k}: mesh {v}, the checkpoint single-device {one_metrics[name][k]}")
+    os.remove(edge.save_path)
+    with torch.no_grad():
+        rep = loaded.model.make_scoring_state(loaded.params)
+    rec_mesh, rec_one = edge.recommend("test"), loaded.recommend("test")
+    clear = same_up_to_ties("recommend", rep, rec_mesh, rec_one, ds.n_users)
+    direct = sharded_recommend_all_users(mesh, rep, ds.n_users, ds.n_items, loaded.evaluator.k_max,
+                                         exclude_rows=loaded.evaluator._trainval_excl, batch_size=TEST_BATCH)
+    same_up_to_ties("sharded_recommend_all_users", rep, direct, rec_one, ds.n_users)
+    out["serving"] = {"test_ndcg20": mesh_metrics["NDCG"][20], "test_recall20": mesh_metrics["Recall"][20],
+                      "clear_share": clear}
+    log(f"mesh evaluator = single-device to 1e-6 on the reloaded best checkpoint (test NDCG@20 "
+        f"{mesh_metrics['NDCG'][20]:.6f}); recommend and sharded_recommend_all_users equal up to ties "
+        f"({100 * clear:.1f}% of ranks clear of ties)")
+
+    reset_launch_counts()
+    reset_collective_counts()
+    edge.step()
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in spmm_csr_cuda.route_launches.items() if v}
+    per_step_kinds = dict(collective_counts.by_kind)
+    want = {"edge_shard": 6, "edge_shard_dropout": 2, "edge_shard_transpose": 6, "edge_shard_transpose_dropout": 2}
+    if per_step != want or per_step_kinds != {"all_reduce": 2, "reduce_scatter": 4, "all_gather": 4}:
+        raise AssertionError(f"one edge-mode step launched {per_step} and collectives {per_step_kinds}")
+    step_ms = median_ms(edge.step, reps=30)
+    (step_windowed_ms,) = windowed_ms(edge.step)
+    train = {
+        "steps_per_epoch": edge.steps_per_epoch, "step_ms": step_ms, "step_ms_windowed": step_windowed_ms,
+        "examples_per_s": edge.batch_size / step_ms * 1e3,
+        "examples_per_s_windowed": edge.batch_size / step_windowed_ms * 1e3, "epoch_s": epoch_s,
+        "val_ndcg20_init": init_ndcg, "val_ndcg20": final, "route_launches_run": run_routes,
+        "collectives_run": run_kinds, "launches_per_step": per_step, "collectives_per_step": per_step_kinds,
+        "loss_max_abs_diff_single": float(diff.max()),
+    }
+    breakdown = device_breakdown(edge.step, top=12)
+    if breakdown is None:
+        log("one edge-mode step under torch.profiler: no device activity recorded; breakdown not measured")
+    else:
+        host, busy, kernels, n_spans = breakdown
+        nccl = [(k, ms, c) for k, ms, c in kernels if "nccl" in k.lower()]
+        train["profiled_step"] = {"host_ms": host, "device_busy_ms": busy, "device_launches": n_spans,
+                                  "kernels": kernels, "nccl_device_ms": sum(ms for _, ms, _ in nccl)}
+        log(f"one edge-mode step under torch.profiler: host {host:.3f} ms, device busy {busy:.3f} ms, {n_spans} "
+            f"device launches; NCCL kernels {train['profiled_step']['nccl_device_ms']:.4f} ms ({nccl}); by device time:")
+        for name, ms, c in kernels:
+            log(f"  {ms:9.4f} ms {c:5d}x  {name[:100]}")
+    log(f"edge-mode step on {card}: {step_ms:.3f} ms single, {step_windowed_ms:.3f} ms windowed "
+        f"({train['examples_per_s']:.0f} / {train['examples_per_s_windowed']:.0f} examples/s); single-device step "
+        f"in the same run: {median_ms(single.step, reps=30):.3f} ms; launches a step {per_step}; collectives "
+        f"{per_step_kinds}")
+    out["train"] = train
+
+    # (e) data mode: IGCNTrainer with the table row-sharded, 50 steps
+    data = get_trainer(config, ds, get_model(dict(IGCN_CONFIG, table_align=world), ds), mesh=mesh, mesh_mode="data")
+    data_losses = np.array([float(data.step()) for _ in range(DATA_MODE_STEPS)])
+    ddiff = np.abs(data_losses - single_losses)
+    if not (ddiff <= 1e-5 * np.maximum(1.0, np.abs(single_losses))).all():
+        raise AssertionError(f"data-mode losses {data_losses} vs single-device {single_losses}")
+    out["data_mode"] = {"steps": DATA_MODE_STEPS, "loss_max_abs_diff_single": float(ddiff.max())}
+    log(f"data-mode IGCNTrainer: {DATA_MODE_STEPS} losses within {ddiff.max():.3g} of the single-device trainer's")
+
+    # (f) the command line under torchrun, in phase 11's directory
+    n_cards = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n_cards),
+           "-m", "inductive_recommendation_tpu_torch", "--grid", "gowalla", "--index", str(CLI_ROW),
+           "--mesh", f"1,{n_cards}", "--mesh-mode", "edge", "--n-epochs", "1", "--stage", "test"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    run_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    printed = proc.stdout.strip().splitlines()
+    line = json.loads(printed[-1])
+    launched = json.loads(printed[-2].removeprefix("launches: "))
+    if not all(math.isfinite(line[k]) for k in ("best_val_ndcg", "test_ndcg@20", "test_recall@20")):
+        raise AssertionError(f"the torchrun line is not finite: {line}")
+    n_train = split_counts(os.path.join(work, *GRID_PATH.split("/")))[2]["train"]
+    cli_steps = -(-n_train // grid_row("IGCN")[2]["batch_size"])
+    expected = {r: cli_steps * k for r, k in want.items()}
+    expected["edge_shard"] += 2 * 2 * (1 + IGCN_CONFIG["n_layers"])  # a val and a test get_rep, 2 launches a product
+    if launched["spmm_by_route"] != expected:
+        raise AssertionError(f"the torchrun run launched {launched['spmm_by_route']}, expected {expected}")
+    out["torchrun"] = {"nproc": n_cards, "run_s": run_s, "line": line, "launches": launched, "steps": cli_steps}
+    log(f"torchrun --nproc_per_node {n_cards} ... --mesh 1,{n_cards} --mesh-mode edge: {run_s:.2f} s, {cli_steps} "
+        f"steps; {line}; launches {launched}")
+    dist.destroy_process_group()
+    return out, fwd_row, t_row
 
 
 def main():
@@ -1991,11 +2294,31 @@ def main():
     view["detail"].append(lrows["sgl_view"])
 
     # 11. the front door: the raw file, the preprocessing and the grid's IGCN
-    # row through the command line
-    front = front_door_phase(card, {r: k for r, k in train["launches_per_step"].items() if k}, rng)
-    log("front door: " + json.dumps(front))
-    kernel.update(launches_cli=front["cli"]["launches"], route_launches_cli=front["cli"]["route_launches"])
-    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries]}))
+    # row through the command line; 12. the multi-GPU layer, its command-line
+    # run in the same directory
+    with tempfile.TemporaryDirectory(prefix="front_door_") as work:
+        front = front_door_phase(card, {r: k for r, k in train["launches_per_step"].items() if k}, rng, work)
+        log("front door: " + json.dumps(front))
+        kernel.update(launches_cli=front["cli"]["launches"], route_launches_cli=front["cli"]["route_launches"])
+        mesh, shard_fwd, shard_t = mesh_phase(ds, card, rng, work)
+    log("mesh: " + json.dumps(mesh))
+    max_err = max(max_err, mesh["shard_max_abs_err"], shard_fwd["max_abs_err"], shard_t["max_abs_err"])
+    mroutes, mstep = mesh["train"]["route_launches_run"], mesh["train"]["launches_per_step"]
+    shard_entries = [
+        entry("spmm_csr_edge_shard", shard_fwd, mroutes["edge_shard"], mstep["edge_shard"],
+              f"one rank's product in the edge-sharded layer (parallel/spmm.py): shard 0 of a {SHARDS}-way column "
+              "split of the adjacency (A[:, blk_0] @ x_0); launches: the edge-mode IGCN epoch at mesh (1, world): "
+              "its adjacency products and every forward product of its evaluations; every shard's time in the mesh "
+              "line's shard_times", [shard_fwd]),
+        entry("spmm_csr_edge_shard_transpose_dropout", shard_t, mroutes["edge_shard_transpose_dropout"],
+              mstep["edge_shard_transpose_dropout"],
+              f"the backward of a rank's feature product under dropout (p {IGCN_CONFIG['dropout']}, keyed by the "
+              f"global edge id): shard 0's transpose CSR of a {SHARDS}-way split @ the all-gathered cotangent; "
+              "launches: the edge-mode IGCN epoch", [shard_t]),
+    ]
+    for e in shard_entries:
+        e["collectives_per_step"] = mesh["train"]["collectives_per_step"]
+    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *shard_entries]}))
     print(
         json.dumps(
             {

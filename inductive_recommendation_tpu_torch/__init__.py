@@ -38,7 +38,12 @@ utilities and the command line:
     python -m inductive_recommendation_tpu_torch --preprocess gowalla --data-path RAW --out-path data/Gowalla/time
     python -m inductive_recommendation_tpu_torch --grid gowalla --index 2 --stage test
 
-Not ported yet: the multi-GPU layer (the mesh, ``--mesh``).
+and the multi-GPU layer (``parallel/``: one process a card over NCCL, a
+('data', 'model') mesh, the edge-sharded SpMM, item-sharded retrieval, the
+data- and edge-mode LightGCN / IGCN steps, ``EdgeShardedTrainer``):
+
+    torchrun --standalone --nproc_per_node 4 -m inductive_recommendation_tpu_torch --grid gowalla --index 2 \
+        --mesh 1,4 --mesh-mode edge
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Full-catalog retrieval evaluation and the inductive six-slice protocol
-(counterpart of ``inductive_recommendation_tpu/eval/evaluator.py``, without a
-mesh; reference trainer.py:146-253).
+(counterpart of ``inductive_recommendation_tpu/eval/evaluator.py``; reference
+trainer.py:146-253).
 
 - the model's full representation is computed once per evaluation and reused
   for every user batch (the reference re-propagated the graph per batch);
@@ -10,13 +10,18 @@ mesh; reference trainer.py:146-253).
 - users are taken in exclusion-width buckets (a geometric ladder over the
   exclusion list lengths), so the -inf scatter is O(E), not
   O(n_users * max_degree). Metric sums are order-invariant, so the bucket
-  order needs no undoing.
+  order needs no undoing;
+- under a mesh (``parallel/mesh.py``) every rank holds the scoring state and
+  takes its slice of each user batch; the metric partial sums are
+  all-reduced once an evaluation, and ``recommend`` scores item-sharded with
+  a per-rank top-k and a k-way merge (``parallel/eval.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from inductive_recommendation_tpu_torch.data.dataset import device_padded_from_lists
 from inductive_recommendation_tpu_torch.eval.device_metrics import (
@@ -24,6 +29,8 @@ from inductive_recommendation_tpu_torch.eval.device_metrics import (
     combine_metric_sums,
 )
 from inductive_recommendation_tpu_torch.ops.topk import masked_topk
+from inductive_recommendation_tpu_torch.parallel.collectives import all_reduce
+from inductive_recommendation_tpu_torch.parallel.eval import sharded_recommend_all_users
 from inductive_recommendation_tpu_torch.utils.device import resolve_device
 
 
@@ -36,15 +43,22 @@ def _format_results(metrics, topks):
 
 
 class Evaluator:
-    def __init__(self, dataset, topks, test_batch_size=512, device=None):
+    def __init__(self, dataset, topks, test_batch_size=512, device=None, mesh=None):
         """Runs on the CUDA card unless ``device`` says otherwise; raises when
-        no device is given and there is no card."""
+        no device is given and there is no card. ``mesh``: a ('data',
+        'model') ``DeviceMesh`` over every rank; each user batch then splits
+        over all of them (JAX evaluator.py:44-62)."""
         self.dataset = dataset
         self.topks = list(topks)
         # small catalogs: cannot retrieve more items than exist
         self.k_max = min(max(self.topks), dataset.n_items)
         self.test_batch_size = int(test_batch_size)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and self.test_batch_size % mesh.size():
+            raise ValueError(
+                f"test_batch_size {self.test_batch_size} must divide over the mesh ({mesh.size()} ranks)"
+            )
         n_items = dataset.n_items
         trainval = [list(t) + list(v) for t, v in zip(dataset.train_data, dataset.val_data)]
         self._train_excl = device_padded_from_lists(dataset.train_data, n_items, device=self.device)
@@ -70,6 +84,12 @@ class Evaluator:
         state = model.make_scoring_state(params)
         B = self.test_batch_size
 
+        if self.mesh is not None and isinstance(state, torch.Tensor) and state.ndim == 2:
+            excl = {"test": self._trainval_excl, "val": self._train_excl}.get(stage)
+            return sharded_recommend_all_users(
+                self.mesh, state, n_users, ds.n_items, self.k_max, exclude_rows=excl,
+                banned_items=banned_items, batch_size=B,
+            )
         if stage not in ("val", "test") and banned is None:
             rec = []
             for start in range(0, n_users, B):
@@ -129,25 +149,32 @@ class Evaluator:
         gt_rows, gt_len, sorted_gt = self._gt_device(eval_data)
         topks = tuple(self.topks)
         B = self.test_batch_size
+        # this rank's slice of each batch: all of it without a mesh
+        b, lo = B, 0
+        if self.mesh is not None:
+            b = B // self.mesh.size()
+            lo = dist.get_rank() * b
         sums, valids = [], []
         for perm, n_real, excl_rows in self._excl_buckets(stage):
             slots = torch.arange(perm.shape[0], device=self.device)
             acc = torch.zeros(len(topks), 3, dtype=torch.float32, device=self.device)
             n_valid = torch.zeros((), dtype=torch.float32, device=self.device)
-            for i in range(0, perm.shape[0], B):
-                users = perm[i : i + B]
+            for i in range(lo, perm.shape[0], B):
+                users = perm[i : i + b]
                 scores = model.score(state, users)
-                rec = masked_topk(scores, self.k_max, exclude_idx=excl_rows[i : i + B], banned_mask=banned)[1]
+                rec = masked_topk(scores, self.k_max, exclude_idx=excl_rows[i : i + b], banned_mask=banned)[1]
                 s, v = batch_metric_sums(
-                    rec, gt_rows[users], gt_len[users], slots[i : i + B] < n_real, topks, sorted_gt=sorted_gt
+                    rec, gt_rows[users], gt_len[users], slots[i : i + b] < n_real, topks, sorted_gt=sorted_gt
                 )
                 acc += s
                 n_valid += v
             sums.append(acc)
             valids.append(n_valid)
-        return combine_metric_sums(
-            [s.cpu().numpy() for s in sums], [float(v) for v in valids], self.topks
-        )
+        sums, valids = torch.stack(sums), torch.stack(valids)
+        if self.mesh is not None:
+            both = all_reduce(torch.cat([sums.flatten(), valids]), None)
+            sums, valids = both[: sums.numel()].view_as(sums), both[sums.numel() :]
+        return combine_metric_sums(list(sums.cpu().numpy()), valids.tolist(), self.topks)
 
     def _excl_buckets(self, stage):
         """Users grouped by exclusion width: a list of (perm [N_b padded to a

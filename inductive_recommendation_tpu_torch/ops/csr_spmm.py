@@ -320,7 +320,11 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
 ROUTES = (
     "forward", "transpose", "forward_dropout", "transpose_dropout", "view",
     "attention", "attention_transpose", "aug_feat", "aug_feat_transpose",
+    "edge_shard", "edge_shard_transpose", "edge_shard_dropout", "edge_shard_transpose_dropout",
 )
+
+# routed layouts whose products under dropout count apart
+_DROPOUT_ROUTES = ("edge_shard",)
 
 
 def route_key(mat: CsrSpMM, drop=None) -> str:
@@ -330,10 +334,13 @@ def route_key(mat: CsrSpMM, drop=None) -> str:
     plus ``_transpose`` on the transpose side, with or without dropout
     (``view``, forward and backward alike since a view is symmetric;
     ``attention`` / ``attention_transpose``; ``aug_feat`` /
-    ``aug_feat_transpose``)."""
+    ``aug_feat_transpose``; a shard of the multi-GPU layer's edge-sharded
+    product, ``edge_shard`` and ``edge_shard_transpose``, each with
+    ``_dropout`` under dropout)."""
+    dropout = "" if drop is None else "_dropout"
     if mat.route is None:
-        return ("transpose" if mat.transposed else "forward") + ("" if drop is None else "_dropout")
-    return mat.route + ("_transpose" if mat.transposed else "")
+        return ("transpose" if mat.transposed else "forward") + dropout
+    return mat.route + ("_transpose" if mat.transposed else "") + (dropout if mat.route in _DROPOUT_ROUTES else "")
 
 
 def reset_launch_counts():

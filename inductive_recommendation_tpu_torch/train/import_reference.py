@@ -19,10 +19,11 @@ which ``BasicTrainer._load_model`` and ``IDCF_LGCN(lgcn_path=...)`` read; an
 IGCN-family model rebuilds its graph buffers (and DOSE views) from the
 current dataset, as the reference's ``load`` does.
 
-The JAX package's ``pad_like`` and its ``template`` argument pad tables to a
-mesh's row alignment (``table_align``); they wait for the multi-GPU slice.
+``pad_like`` (and ``template=`` / ``--table-align``) zero-pads the tables to
+a model's row-aligned shapes (``table_align``, the 'model' axis size of a
+data-mode mesh), as the JAX package's does; the pad rows are never read.
 
-    python -m inductive_recommendation_tpu_torch.train.import_reference SRC DST [--model NAME] [--n-users N] [--n-items N]
+    python -m inductive_recommendation_tpu_torch.train.import_reference SRC DST [--model NAME] [--n-users N] [--n-items N] [--table-align A]
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from inductive_recommendation_tpu_torch.models.convert import flatten_params
+from inductive_recommendation_tpu_torch.parallel.mesh import param_spec
 from inductive_recommendation_tpu_torch.train.checkpoint import save_checkpoint
 
 #: reference model classes whose ``save`` writes the IGCN-family wrapper
@@ -176,6 +178,39 @@ def convert_reference_state(payload, model_name=None, n_users=None, n_items=None
     )
 
 
+def pad_like(params, template):
+    """Zero-pad imported leaves up to the shapes of ``template``'s (a tree of
+    the same structure; a key it lacks passes as it is): a leaf may grow in
+    rows only (JAX import_reference.py:234-255)."""
+    if isinstance(params, dict):
+        return {k: pad_like(v, template[k]) if k in template else v for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(pad_like(v, t) for v, t in zip(params, template))
+    p, t = np.asarray(params), np.asarray(_np(template))
+    if p.shape == t.shape:
+        return p.astype(t.dtype)
+    if p.ndim == t.ndim >= 1 and p.shape[1:] == t.shape[1:] and p.shape[0] <= t.shape[0]:
+        out = np.zeros(t.shape, t.dtype)
+        out[: p.shape[0]] = p
+        return out
+    raise ValueError(f"imported leaf {p.shape} does not fit template {t.shape}")
+
+
+def align_rows(params, table_align: int, name: str = ""):
+    """The tables, the leaves a data-mode mesh row-shards
+    (``parallel.mesh.param_spec``), padded to a multiple of ``table_align``
+    rows; every other leaf as it is."""
+    a = max(int(table_align), 1)
+    if isinstance(params, dict):
+        return {k: align_rows(v, a, k) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(align_rows(v, a, name) for v in params)
+    leaf = np.asarray(params)
+    if param_spec(name, leaf) is None:
+        return leaf
+    return pad_like(leaf, np.zeros((-(-leaf.shape[0] // a) * a, leaf.shape[1]), leaf.dtype))
+
+
 def load_torch_payload(path):
     """``torch.load`` on the CPU, with ``weights_only=True`` where the payload
     allows it. Otherwise (objects that are not tensors, containers or
@@ -186,12 +221,19 @@ def load_torch_payload(path):
         return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def import_reference_checkpoint(src, dst, model_name=None, n_users=None, n_items=None):
+def import_reference_checkpoint(src, dst, model_name=None, n_users=None, n_items=None, template=None,
+                                table_align=None):
     """Convert the reference ``.pth`` at ``src`` into a port checkpoint at
-    ``dst``. Returns (params tree, aux)."""
+    ``dst``. Returns (params tree, aux). ``template``: a params tree (or a
+    model's ``params()``, flat) to row-pad the tables against;
+    ``table_align``: pad the tables to a multiple of that many rows."""
     params, aux = convert_reference_state(
         load_torch_payload(src), model_name=model_name, n_users=n_users, n_items=n_items
     )
+    if template is not None:
+        params = pad_like(params, template)
+    if table_align is not None:
+        params = align_rows(params, table_align)
     flat = {name: torch.from_numpy(np.ascontiguousarray(leaf)) for name, leaf in flatten_params(params).items()}
     save_checkpoint(dst, flat, aux=aux)
     return params, aux
@@ -199,10 +241,12 @@ def import_reference_checkpoint(src, dst, model_name=None, n_users=None, n_items
 
 def import_for_model(src, dst, model):
     """Convert against a constructed port model: its class names the
-    reference model and its catalog sizes the core maps. The written file
-    loads through ``BasicTrainer._load_model``."""
+    reference model, its catalog sizes the core maps and its row-aligned
+    parameter shapes pad the tables. The written file loads through
+    ``BasicTrainer._load_model``."""
     return import_reference_checkpoint(
-        src, dst, model_name=type(model).__name__, n_users=model.n_users, n_items=model.n_items
+        src, dst, model_name=type(model).__name__, n_users=model.n_users, n_items=model.n_items,
+        template={name: p for name, p in model.params().items() if "." not in name},  # the top-level leaves
     )
 
 
@@ -213,9 +257,12 @@ def main(argv=None):
     p.add_argument("--model", default=None, help="reference model class (inferred from the keys if omitted)")
     p.add_argument("--n-users", type=int, default=None, help="catalog size for densifying user_map")
     p.add_argument("--n-items", type=int, default=None, help="catalog size for densifying item_map")
+    p.add_argument("--table-align", type=int, default=None,
+                   help="pad tables to a multiple of this many rows (a data-mode mesh's 'model' size)")
     args = p.parse_args(argv)
     params, aux = import_reference_checkpoint(
-        args.src, args.dst, model_name=args.model, n_users=args.n_users, n_items=args.n_items
+        args.src, args.dst, model_name=args.model, n_users=args.n_users, n_items=args.n_items,
+        table_align=args.table_align,
     )
     shapes = {name: tuple(np.shape(leaf)) for name, leaf in flatten_params(params).items()}
     print(f"wrote {args.dst}: params {shapes}, aux keys {sorted(aux)}")

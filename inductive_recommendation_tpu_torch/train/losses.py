@@ -32,15 +32,18 @@ def multinomial_ll_loss(scores, profiles, valid=None) -> torch.Tensor:
     return (ml * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
-def aux_bpr_w(emb, w, a_users, a_pos, a_neg, user_dim) -> torch.Tensor:
-    """IGCN's auxiliary BPR on the raw core embedding rows, scored with the
-    per-dimension weight ``w`` (reference trainer.py:542-549)."""
-    au = emb[a_users]
-    ap = emb[user_dim + a_pos]
-    an = emb[user_dim + a_neg]
+def aux_bpr_rows(au, ap, an, w) -> torch.Tensor:
+    """IGCN's auxiliary BPR on gathered core rows (users, positives,
+    negatives), scored with the per-dimension weight ``w`` (reference
+    trainer.py:542-549)."""
     pos_s = (au * ap * w[None, :]).sum(dim=1)
     neg_s = (au * an * w[None, :]).sum(dim=1)
     return softplus(neg_s - pos_s).mean()
+
+
+def aux_bpr_w(emb, w, a_users, a_pos, a_neg, user_dim) -> torch.Tensor:
+    """:func:`aux_bpr_rows` on the rows of the core embedding table."""
+    return aux_bpr_rows(emb[a_users], emb[user_dim + a_pos], emb[user_dim + a_neg], w)
 
 
 def _l2n(x, eps=1e-12):

@@ -1,5 +1,5 @@
-"""Training loops (counterpart of ``inductive_recommendation_tpu/train/trainer.py``,
-single device, no mesh; reference trainer.py:25-253).
+"""Training loops (counterpart of ``inductive_recommendation_tpu/train/trainer.py``;
+reference trainer.py:25-253).
 
 - a step draws its batch on the device (``data/sampling.py``), runs the
   model's forward (every sparse product through the hand-written SpMM
@@ -30,7 +30,15 @@ A JAX msgpack checkpoint loads through ``_load_model`` (params and aux);
 its optimizer state does not (``load_state`` raises), since optax's Adam
 tree is not ``torch.optim.Adam``'s.
 
-Not ported yet: the mesh (the multi-GPU slice).
+Under a mesh (``get_trainer(..., mesh=make_mesh(...))``, one process per
+card, ``parallel/``), ``BPRTrainer`` and ``IGCNTrainer`` train data-parallel
+(``parallel/step.py``'s data mode: every rank draws the same global batch
+and keeps its slice, tables row-sharded over 'model' with their Adam
+moments), and evaluation runs the mesh evaluator; ``mesh_mode="edge"``
+shards the graph too (``train/edge_trainer.py``). Checkpoints hold the
+model's own layout, written by rank 0 behind a barrier, so a single-device
+trainer loads them. The other trainers raise on a mesh: their data mode
+comes with the next slice of the port.
 """
 
 from __future__ import annotations
@@ -40,10 +48,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from inductive_recommendation_tpu_torch.data.dataset import AuxiliaryDataset
 from inductive_recommendation_tpu_torch.data.sampling import build_sampler_state, sample_bpr_batch
 from inductive_recommendation_tpu_torch.eval.evaluator import Evaluator
+from inductive_recommendation_tpu_torch.parallel.mesh import gather_rows, local_rows, param_spec, shard_params
+from inductive_recommendation_tpu_torch.parallel.step import make_sharded_bpr_step, make_sharded_igcn_step
 from inductive_recommendation_tpu_torch.train.checkpoint import JAX_FORMAT, load_checkpoint, save_checkpoint
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, multinomial_ll_loss
 
@@ -58,6 +69,10 @@ def _epoch_mean(losses) -> float:
 
 
 class BasicTrainer:
+    # a mesh means data mode: the model whole on every rank, its tables
+    # row-sharded (EdgeShardedTrainer shards the graph instead)
+    _data_mesh = True
+
     def __init__(self, trainer_config, dataset, model):
         self.config = dict(trainer_config)
         self.name = trainer_config["name"]
@@ -81,10 +96,61 @@ class BasicTrainer:
         self.device = model.device
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.host_generator = torch.Generator().manual_seed(self.seed)
-        self.evaluator = Evaluator(dataset, self.topks, trainer_config.get("test_batch_size", 512), device=self.device)
+        # optional ('data', 'model') DeviceMesh (get_trainer's mesh=); None:
+        # one device
+        self.mesh = self.config.get("mesh")
+        self.evaluator = Evaluator(
+            dataset, self.topks, trainer_config.get("test_batch_size", 512), device=self.device, mesh=self.mesh
+        )
         self.params = model.init_params(self.generator)
+        # the model's own parameter shapes: checkpoints hold this layout
+        self._shapes = {name: tuple(p.shape) for name, p in self.params.items()}
+        if self.mesh is not None and self._data_mesh:
+            if type(self) not in (BPRTrainer, IGCNTrainer):
+                raise ValueError(
+                    f"{self.name} has no mesh route yet: data-parallel training covers BPRTrainer and IGCNTrainer, "
+                    "the other trainers wait for the next slice of the port"
+                )
+            if self.batch_size % self.mesh.size():
+                raise ValueError(f"batch_size {self.batch_size} must divide over the mesh ({self.mesh.size()} ranks)")
+            self.params = shard_params(self.params, self.mesh)
         self.optimizer = None
         self.steps_per_epoch = max(1, -(-len(dataset) // self.batch_size))
+
+    @property
+    def is_writer(self) -> bool:
+        """The rank that writes files and prints: rank 0 under a mesh."""
+        return self.mesh is None or dist.get_rank() == 0
+
+    # -- parameter layouts ---------------------------------------------------
+    def _to_model_layout(self, name, t):
+        """A parameter (or a tensor of its shape) of this rank -> the model's
+        own layout, the same on every rank."""
+        if self.mesh is None or not param_spec(name, t):
+            return t
+        return gather_rows(t, self.mesh)[: self._shapes[name][0]]
+
+    def _to_local_layout(self, name, t):
+        """The model's layout -> this rank's part."""
+        if self.mesh is None or not param_spec(name, t):
+            return t
+        return local_rows(t.to(self.device), self.mesh)
+
+    def _model_params(self):
+        """The parameters in the model's own layout (gathered under a mesh)."""
+        return {name: self._to_model_layout(name, p) for name, p in self.params.items()}
+
+    def _map_opt_state(self, state, convert):
+        """``optimizer.state_dict()`` with ``convert(name, t)`` applied to the
+        per-parameter tensors shaped like their parameter."""
+        names = list(self.params)
+        out = dict(state, state={})
+        for idx, entry in state["state"].items():
+            name = names[idx]
+            out["state"][idx] = {
+                k: convert(name, v) if isinstance(v, torch.Tensor) and v.ndim == 2 else v for k, v in entry.items()
+            }
+        return out
 
     # -- optimizer (trainer.py:44-46) ---------------------------------------
     def initialize_optimizer(self):
@@ -126,10 +192,17 @@ class BasicTrainer:
         if missing:
             raise KeyError(f"the checkpoint lacks parameters {missing}; it has {sorted(saved)}")
         for name, p in self.params.items():
-            p.copy_(saved[name])
+            p.copy_(self._to_local_layout(name, saved[name]))
+
+    def _write(self, path, params, opt_state=None, aux=None):
+        """Rank 0 writes; under a mesh every rank waits for the file."""
+        if self.is_writer:
+            save_checkpoint(path, params, opt_state=opt_state, aux=aux)
+        if self.mesh is not None:
+            dist.barrier()
 
     def _save_model(self, path):
-        save_checkpoint(path, self.params, aux=self.model.checkpoint_aux())
+        self._write(path, self._model_params(), aux=self.model.checkpoint_aux())
 
     def _load_model(self, path):
         payload = load_checkpoint(path)
@@ -155,8 +228,10 @@ class BasicTrainer:
             "generator": self.generator.get_state(),
             "host_generator": self.host_generator.get_state(),
         }
-        opt_state = None if self.optimizer is None else self.optimizer.state_dict()
-        save_checkpoint(path, self.params, opt_state=opt_state, aux=aux)
+        opt_state = None
+        if self.optimizer is not None:
+            opt_state = self._map_opt_state(self.optimizer.state_dict(), self._to_model_layout)
+        self._write(path, self._model_params(), opt_state=opt_state, aux=aux)
 
     def load_state(self, path):
         payload = load_checkpoint(path)
@@ -167,7 +242,7 @@ class BasicTrainer:
             )
         self._restore_params(payload["params"])
         if self.optimizer is not None and "opt_state" in payload:
-            self.optimizer.load_state_dict(payload["opt_state"])
+            self.optimizer.load_state_dict(self._map_opt_state(payload["opt_state"], self._to_local_layout))
         aux = dict(payload.get("aux", {}))
         ts = aux.pop("__trainer__", {})
         self.model.restore_aux(aux)
@@ -189,7 +264,10 @@ class BasicTrainer:
         that does not train (ItemKNN, Popularity) is validated once and its
         NDCG@topks[min(5, len - 1)] returned (trainer.py:64 of the
         reference). ``writer`` gets each epoch's loss and train metrics and
-        each validation's metrics."""
+        each validation's metrics. Under a mesh every rank runs the loop
+        (the metrics agree on every rank, so do the decisions) and rank 0
+        prints, writes and removes the files."""
+        verbose, writer = (verbose, writer) if self.is_writer else (False, None)
         if not self.model.trainable:
             results, metrics = self.eval("val")
             if verbose:
@@ -224,7 +302,7 @@ class BasicTrainer:
                 self.record(writer, "validation", metrics, epoch=epoch)
             ndcg = metrics["NDCG"][self.topks[min(4, len(self.topks) - 1)]]
             if ndcg > self.best_ndcg:
-                if self.save_path and os.path.exists(self.save_path):
+                if self.is_writer and self.save_path and os.path.exists(self.save_path):
                     os.remove(self.save_path)
                 self.save_path = os.path.join(
                     "checkpoints",
@@ -249,15 +327,17 @@ class BasicTrainer:
 
     # -- evaluation (delegates; trainer.py:146-210) -------------------------
     def eval(self, val_or_test, banned_items=None):
-        return self.evaluator.evaluate(self.model, self.params, val_or_test, banned_items=banned_items)
+        return self.evaluator.evaluate(self.model, self._model_params(), val_or_test, banned_items=banned_items)
 
     def inductive_eval(self, n_old_users, n_old_items):
-        return self.evaluator.inductive_eval(self.model, self.params, n_old_users, n_old_items)
+        return self.evaluator.inductive_eval(
+            self.model, self._model_params(), n_old_users, n_old_items, verbose=self.is_writer
+        )
 
     def recommend(self, stage="test", banned_items=None):
         """Top-k_max items for every user -> [n_users, k_max] numpy ('test'
         excludes train+val history, 'val' train, anything else nothing)."""
-        return self.evaluator.recommend(self.model, self.params, stage, banned_items=banned_items)
+        return self.evaluator.recommend(self.model, self._model_params(), stage, banned_items=banned_items)
 
 
 class BPRTrainer(BasicTrainer):
@@ -268,10 +348,24 @@ class BPRTrainer(BasicTrainer):
         self.l2_reg = trainer_config["l2_reg"]
         self.initialize_optimizer()
         self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
+        if self.mesh is not None and self._data_mesh:
+            self._mesh_step = make_sharded_bpr_step(
+                model, self.optimizer, self.params, self.batch_size, self.l2_reg, self.mesh, self.host_generator
+            )
+
+    def sample(self):
+        """The step's batch: (users, pos, neg) of the global batch."""
+        users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
+        return users, pos, neg[:, 0]
+
+    def step(self, *batch):
+        if self.mesh is None:
+            return super().step(*batch)
+        return self._mesh_step(*(batch or self.sample()))
 
     def loss(self):
-        users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
-        out = self.model.bpr_forward(self.params, users, pos, neg[:, 0], training=True, generator=self.host_generator)
+        users, pos, neg = self.sample()
+        out = self.model.bpr_forward(self.params, users, pos, neg, training=True, generator=self.host_generator)
         return self._objective(out)
 
     def _objective(self, out):
@@ -412,17 +506,34 @@ class IGCNTrainer(BasicTrainer):
         self.l2_reg = trainer_config["l2_reg"]
         self.aux_reg = trainer_config["aux_reg"]
         self.initialize_optimizer()
+        self._build_samplers(dataset)
+        if self.mesh is not None and self._data_mesh:
+            self._mesh_step = make_sharded_igcn_step(
+                model, self.optimizer, self.params, self.batch_size, self.l2_reg, self.aux_reg, self.mesh,
+                self.host_generator,
+            )
+
+    def _build_samplers(self, dataset):
         self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
-        aux = AuxiliaryDataset(dataset, model.user_map, model.item_map)
+        aux = AuxiliaryDataset(dataset, self.model.user_map, self.model.item_map)
         self.aux_sampler = build_sampler_state(aux.train_data, aux.n_items, self.device)
 
-    def loss(self):
+    def sample(self):
+        """The step's batches: (users, pos, neg, a_users, a_pos, a_neg), the
+        main batch then the auxiliary one over the core ids."""
         users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
         a_users, a_pos, a_neg = sample_bpr_batch(self.aux_sampler, self.generator, self.batch_size)
-        out = self.model.bpr_forward(
-            self.params, users, pos, neg[:, 0], training=True, generator=self.host_generator
-        )
-        aux = aux_bpr_w(self.params["embedding"], self.params["w"], a_users, a_pos, a_neg[:, 0], self.model.user_dim)
+        return users, pos, neg[:, 0], a_users, a_pos, a_neg[:, 0]
+
+    def step(self, *batch):
+        if self.mesh is None:
+            return super().step(*batch)
+        return self._mesh_step(*(batch or self.sample()))
+
+    def loss(self):
+        users, pos, neg, a_users, a_pos, a_neg = self.sample()
+        out = self.model.bpr_forward(self.params, users, pos, neg, training=True, generator=self.host_generator)
+        aux = aux_bpr_w(self.params["embedding"], self.params["w"], a_users, a_pos, a_neg, self.model.user_dim)
         return self._objective(out, aux)
 
     def _objective(self, out, aux):
@@ -472,7 +583,22 @@ TRAINERS = {
 }
 
 
-def get_trainer(trainer_config, dataset, model):
-    """Registry factory keyed by config['name'] (trainer.py:16-22). The
-    trainer runs on the model's device."""
+def get_trainer(trainer_config, dataset, model, mesh=None, mesh_mode="data"):
+    """Registry factory keyed by config['name'] (trainer.py:16-22 and JAX
+    trainer.py:792-814). The trainer runs on the model's device.
+
+    ``mesh``: a ('data', 'model') ``DeviceMesh`` (``parallel.make_mesh``) over
+    the ranks of a torchrun launch. ``mesh_mode="data"``: the named trainer
+    trains data-parallel with row-sharded tables (BPRTrainer, IGCNTrainer).
+    ``mesh_mode="edge"``: ``EdgeShardedTrainer``, the graph, the table and
+    its Adam moments sharded over 'model'; the named trainer's config gives
+    the loss's regularizers."""
+    if mesh is not None and mesh_mode == "edge":
+        from inductive_recommendation_tpu_torch.train.edge_trainer import EdgeShardedTrainer
+
+        return EdgeShardedTrainer(dict(trainer_config, mesh=mesh), dataset, model)
+    if mesh_mode not in ("data", "edge"):
+        raise ValueError(f"mesh_mode {mesh_mode!r} is not 'data' or 'edge'")
+    if mesh is not None:
+        trainer_config = dict(trainer_config, mesh=mesh)
     return TRAINERS[trainer_config["name"]](trainer_config, dataset, model)

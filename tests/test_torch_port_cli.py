@@ -90,10 +90,10 @@ def test_help_lists_main_arguments(capsys):
         jax_main().main(["--help"])
     ref = capsys.readouterr().out
     flags = {tok.rstrip(",") for tok in ref.split() if tok.startswith("--")}
-    assert {f for f in flags if f not in ("--mesh", "--mesh-mode")} <= set(port.split())
+    assert flags <= set(port.split())
     options = cli.build_argparser()._option_string_actions
-    assert "--device" in options and "--mesh" not in options and "--mesh-mode" not in options
-    assert "--mesh-mode" in port and "multi-GPU slice" in cli.build_argparser().epilog
+    assert "--device" in options and "--mesh" in options and "--mesh-mode" in options
+    assert options["--mesh-mode"].choices == ["data", "edge"] and "torchrun" in cli.build_argparser().epilog
 
 
 @pytest.mark.parametrize("split", [[0.7, 0.1, 0.2], [0.8, 0.1, 0.1]])
