@@ -5,17 +5,19 @@
 
 ``chip_smoke.py`` runs the layer at world 1 (one card); this script runs what
 exists only across cards. On the Gowalla-scale synthetic set of
-``chip_smoke.py`` with IGCN's grid row (d 64, 3 layers, dropout 0.3, batch
-2,048), every rank:
+``chip_smoke.py``, with IGCN's grid row (d 64, 3 layers, dropout 0.3, batch
+2,048), DOSE_aug's (the same width, aug_num 500,000) and AttIGCN (4 heads),
+every rank:
 
 1. joins the NCCL group (``parallel.init_distributed``: torchrun's
    environment, ``cuda:LOCAL_RANK``);
-2. trains a single-device ``IGCNTrainer`` of the seed on its own card for
-   ``STEPS`` steps: the reference, the same on every rank;
-3. for each mesh, edge (1, W), edge (2, W / 2) and data (2, W / 2) with W
-   the world size: trains the port's trainer ``STEPS`` steps from the same
-   seed, holds every loss to the reference's within 1e-5 (the same batches
-   and dropout masks), counts one step's SpMM launches by route and
+2. for each model trains a single-device trainer of the seed on its own card
+   for ``STEPS`` steps: the reference, the same on every rank;
+3. for each of the model's meshes (IGCN and DOSE_aug: edge (1, W), edge
+   (2, W / 2) and data (2, W / 2) with W the world size; AttIGCN: edge
+   (1, W)): trains the port's trainer ``STEPS`` steps from the same seed,
+   holds every loss to the reference's within 1e-5 (the same batches,
+   dropout masks and views), counts one step's SpMM launches by route and
    collectives by kind, times the step (the median of ``TIMED`` steps, each
    ended by a synchronise on every rank) and its peak device memory, and
    holds its mesh evaluator's test metrics to a single-device evaluator's on
@@ -61,6 +63,14 @@ TRAINER_CONFIG = {
     "name": "IGCNTrainer", "optimizer": "Adam", "lr": 1e-3, "l2_reg": 0.0, "aux_reg": 0.01,
     "n_epochs": 1, "batch_size": 2048, "test_batch_size": 512, "topks": [20],
 }
+# (model config, trainer config, meshes as (mode, 'data' size)) of each model
+MODELS = (
+    (IGCN_CONFIG, TRAINER_CONFIG, (("edge", 1), ("edge", 2), ("data", 2))),
+    (dict(IGCN_CONFIG, name="DOSE_aug", aug_num=500_000),
+     dict(TRAINER_CONFIG, name="DOSEaugTrainer", aux_reg=0.001, contrastive_reg=0.1),
+     (("edge", 1), ("edge", 2), ("data", 2))),
+    (dict(IGCN_CONFIG, name="AttIGCN", n_heads=4), TRAINER_CONFIG, (("edge", 1),)),
+)
 STEPS = 20
 TIMED = 30
 
@@ -110,15 +120,16 @@ def close_metrics(got, want, what):
                 raise AssertionError(f"{what}: {name}@{k} {got[name][k]} against the single-device {v}")
 
 
-def run_mesh(ds, mode, shape, ref_losses, single_ms, dev) -> dict:
+def run_mesh(ds, model_cfg, trainer_cfg, mode, shape, ref_losses, single_ms, dev) -> dict:
     mesh = make_mesh(*shape)
+    name = model_cfg["name"]
     # the model's own table (no table_align): the same init as the reference;
     # data mode pads the rows it shards
-    trainer = get_trainer(TRAINER_CONFIG, ds, get_model(IGCN_CONFIG, ds), mesh=mesh, mesh_mode=mode)
+    trainer = get_trainer(trainer_cfg, ds, get_model(model_cfg, ds), mesh=mesh, mesh_mode=mode)
     losses = np.array([float(trainer.step()) for _ in range(STEPS)])
     diff = np.abs(losses - ref_losses)
     if not (diff <= 1e-5 * np.maximum(1.0, np.abs(ref_losses))).all():
-        raise AssertionError(f"{mode} {shape}: losses {losses} against the single-device {ref_losses}")
+        raise AssertionError(f"{name} {mode} {shape}: losses {losses} against the single-device {ref_losses}")
     reset_launch_counts()
     reset_collective_counts()
     trainer.step()
@@ -130,20 +141,20 @@ def run_mesh(ds, mode, shape, ref_losses, single_ms, dev) -> dict:
     peak = torch.cuda.max_memory_allocated()
     # the mesh evaluator against a single-device one on the gathered weights
     got = trainer.eval("test")[1]
-    single = get_model(IGCN_CONFIG, ds)
+    single = get_model(model_cfg, ds)
     params = params_from_jax(single, {k: v.detach().cpu().numpy() for k, v in trainer._model_params().items()})
-    want = Evaluator(ds, TRAINER_CONFIG["topks"], TRAINER_CONFIG["test_batch_size"], device=dev).evaluate(
+    want = Evaluator(ds, trainer_cfg["topks"], trainer_cfg["test_batch_size"], device=dev).evaluate(
         single, params, "test")[1]
-    close_metrics(got, want, f"{mode} {shape} evaluate")
+    close_metrics(got, want, f"{name} {mode} {shape} evaluate")
     peaks = [None] * dist.get_world_size()
     dist.all_gather_object(peaks, int(peak))
     out = {
-        "mode": mode, "mesh": list(shape), "loss_max_abs_diff_single": float(diff.max()), "step_ms": ms,
-        "examples_per_s": TRAINER_CONFIG["batch_size"] / ms * 1e3, "step_over_single": ms / single_ms,
+        "model": name, "mode": mode, "mesh": list(shape), "loss_max_abs_diff_single": float(diff.max()), "step_ms": ms,
+        "examples_per_s": trainer_cfg["batch_size"] / ms * 1e3, "step_over_single": ms / single_ms,
         "launches_per_step": launches, "collectives_per_step": kinds,
         "peak_bytes_by_rank": peaks, "test_ndcg20": got["NDCG"][20],
     }
-    log(f"{mode} mesh {shape}: {STEPS} losses within {diff.max():.3g} of the single-device trainer's; step "
+    log(f"{name} {mode} mesh {shape}: {STEPS} losses within {diff.max():.3g} of the single-device trainer's; step "
         f"{ms:.3f} ms ({out['examples_per_s']:.0f} examples/s, {out['step_over_single']:.2f}x the single-device "
         f"step); launches a step {launches}; collectives {kinds}; peak memory by rank {out['peak_bytes_by_rank']}; "
         f"test metrics = single-device on the gathered weights (NDCG@20 {got['NDCG'][20]:.6f})")
@@ -179,12 +190,16 @@ def main():
     if world < 2 or world % 2:
         raise SystemExit(f"chip_mesh.py needs an even world of 2 or more ranks, got {world}")
     ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=SEED)
-    single = get_trainer(TRAINER_CONFIG, ds, get_model(IGCN_CONFIG, ds))
-    ref = np.array([float(single.step()) for _ in range(STEPS)])
-    single_ms = step_ms(single.step)
-    log(f"single-device IGCN step on each card: {single_ms:.3f} ms")
-    runs = [run_mesh(ds, mode, shape, ref, single_ms, dev)
-            for mode, shape in (("edge", (1, world)), ("edge", (2, world // 2)), ("data", (2, world // 2)))]
+    runs, single_ms = [], {}
+    for model_cfg, trainer_cfg, meshes in MODELS:
+        name = model_cfg["name"]
+        single = get_trainer(trainer_cfg, ds, get_model(model_cfg, ds))
+        ref = np.array([float(single.step()) for _ in range(STEPS)])
+        single_ms[name] = step_ms(single.step)
+        log(f"single-device {name} step on each card: {single_ms[name]:.3f} ms")
+        del single
+        runs += [run_mesh(ds, model_cfg, trainer_cfg, mode, (n_data, world // n_data), ref, single_ms[name], dev)
+                 for mode, n_data in meshes]
     shards = [None] * world
     dist.all_gather_object(shards, shard_times(ds, world, rank, dev))
     log(f"adjacency shards of the {world}-way split, ms windowed (kernel / torch.sparse.mm): " + "; ".join(

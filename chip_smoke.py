@@ -147,11 +147,38 @@ Phases, each of which raises on failure (the exit code is then not 0):
    --stage test`` in a subprocess in phase 11's directory: its JSON line is
    finite and its launches by route (printed by rank 0) are exactly 16 a
    step + 8 a ``get_rep`` on the ``edge_shard`` routes.
+13. the rest of the multi-GPU layer over phase 12's group, on the same set,
+   each family at its grid width. (a) DOSE_aug, DOSE_aug2, SGL, HALF, NGCF,
+   IMCGAE, IDCF_LGCN (over a frozen table drawn from the seed) and AttIGCN
+   (4 heads): 20 steps of the single-device trainer, then of a data-mode and
+   of an edge-mode trainer of the same seed on the same model, each loss
+   within 1e-5 of the single-device one (dropout on: the same batches,
+   masks and views), and the edge run's first step's gradients of every
+   parameter within 1e-5 of the parameter's largest single-device one (the
+   key biases, whose gradient is 0 in exact arithmetic, below 1e-6 of the
+   largest gradient); the edge run's launches all on ``edge_shard`` routes,
+   by route and its collectives by kind, one step's, the step's time; the
+   edge trainer's ``evaluate`` equal to the host oracle on its ``recommend``
+   within 1e-6. For DOSE_aug, DOSE_aug2, SGL and HALF the epoch end (the
+   anneal, the views' regeneration and their re-shard on the device) timed,
+   the shards holding the new views' edges, DOSE_aug2's augmented feature
+   shard made, and 2 more steps. (b) 20 data-mode steps of DOSEdropTrainer
+   (DOSE_drop3), DOSEtestTrainer (DOSE_test), BCETrainer (NeuMF) and
+   MLTrainer (MultiVAE) against the single-device trainer. (c) On one card,
+   a 4-way split of the selected DOSE_aug view and of DOSE_aug2's augmented
+   feature matrix (under dropout 0.3) cut on the device, the partials summed
+   against the whole product (``check_product``'s bound plus 3 roundings)
+   and the shards' transposes against the whole transpose; AttIGCN's
+   attention over a 4-way split of the feature matrix, its row maxima and
+   sums combined over the shards, edge by edge within 1e-5 of the
+   single-device attention, and the partial products with it as edge values
+   against the whole one; shard 0's times for each.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
 serving path and read just after, and again around the training runs of
 phases 7 and 8, each model's run in phases 9 and 10, the command line's
-run of phase 11 and the edge-mode epoch of phase 12. The last lines are
+run of phase 11, the edge-mode epoch of phase 12 and each edge-mode run of
+phase 13. The last lines are
 one JSON object of kernel numbers and then ``{"ok": true, "device": {...}}``.
 """
 
@@ -206,8 +233,14 @@ from inductive_recommendation_tpu_torch.parallel import (
     reset_collective_counts,
     sharded_recommend_all_users,
 )
+from inductive_recommendation_tpu_torch.parallel.attention import (
+    shard_attention_from,
+    shard_exp,
+    shard_row_max,
+    shard_scores,
+)
 from inductive_recommendation_tpu_torch.parallel.collectives import counts as collective_counts
-from inductive_recommendation_tpu_torch.parallel.spmm import place_rows
+from inductive_recommendation_tpu_torch.parallel.spmm import build_edge_sharded_on_device, place_rows, values_shard
 from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
 from inductive_recommendation_tpu_torch.train.import_reference import import_reference_checkpoint
 from inductive_recommendation_tpu_torch.utils import StepTimer, trace
@@ -275,6 +308,17 @@ TRACE_STEPS = 10
 SHARDS = 4
 MESH_STEPS_COMPARED = 20
 DATA_MODE_STEPS = 50
+# phase 13: the families in edge mode (the first four also through an epoch
+# end), the trainers in data mode, steps held to the single-device trainer
+EDGE_FAMILIES = ("DOSE_aug", "DOSE_aug2", "SGL", "HALF", "NGCF", "IMCGAE", "IDCF_LGCN", "AttIGCN")
+EPOCH_END_FAMILIES = ("DOSE_aug", "DOSE_aug2", "SGL", "HALF")
+DATA_ONLY_FAMILIES = ("DOSE_drop3", "DOSE_test", "NeuMF", "MultiVAE")
+FAMILY_STEPS = 20
+# parameters whose gradient is 0 in exact arithmetic (AttIGCN's and IDCF's
+# key biases add one score to every key of a row, which the softmax does
+# not see): fp32 noise on both sides, held below 1e-6 of the largest
+# gradient instead of to each other
+ZERO_GRADS = ("weight_k.b", ".wk.b")
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOPKS = [20]
 TEST_BATCH = 512
@@ -1785,7 +1829,13 @@ def shard_rows(name, coo, shape, x, g, drop):
     the whole matrix. -> (shards, per-shard rows of times, max abs err)."""
     whole = build_csr_spmm(*coo, shape, device=x.device)
     shards = [build_edge_sharded_spmm(*coo, shape, SHARDS, s, device=x.device) for s in range(SHARDS)]
-    n_rows, n_cols, d = shape[0], shape[1], int(x.shape[1])
+    return check_split(name, whole, shards, x, g, drop)
+
+
+def check_split(name, whole, shards, x, g, drop):
+    """:func:`shard_rows`'s checks and times for ``shards`` of the layout
+    ``whole``; with ``drop`` None, without dropout."""
+    n_rows, n_cols, d = whole.n_rows, whole.n_cols, int(x.shape[1])
     blk, rblk = shards[0].block, shards[0].row_block
     x_pad = x.new_zeros(shards[0].n_cols_pad, d)
     x_pad[:n_cols] = x
@@ -1794,7 +1844,7 @@ def shard_rows(name, coo, shape, x, g, drop):
     if sum(sh.fwd.nnz for sh in shards) != whole.nnz:
         raise AssertionError(f"{name}: the shards hold {[sh.fwd.nnz for sh in shards]} edges, the whole {whole.nnz}")
     worst = 0.0
-    for dr in (None, drop):
+    for dr in (None, drop) if drop is not None else (None,):
         total, rows_t = None, []
         for s, sh in enumerate(shards):
             part = place_rows(sh, spmm_csr_cuda(sh.fwd, x_pad[s * blk : (s + 1) * blk].contiguous(), drop=dr))
@@ -1806,19 +1856,19 @@ def shard_rows(name, coo, shape, x, g, drop):
         res_t = check_product(f"{name}^T {SHARDS} shards, dropout {dr}", row_blocks(whole.T, d), g,
                               torch.cat(rows_t)[:n_cols], dr)
         worst = max(worst, res["max_abs_err"], res_t["max_abs_err"])
-    seed, p = drop
+    seed, p = drop if drop is not None else (0, 0.0)
     kept = torch.cat([sh.fwd.eid[kept_by_kernel(sh.fwd.eid, seed, p) != 0] for sh in shards])
     kept_t = torch.cat([sh.bwd.eid[kept_by_kernel(sh.bwd.eid, seed, p) != 0] for sh in shards])
     want = whole.eid[edge_uniform(seed, whole.eid) >= p]
     for what, got in (("forward", kept), ("transpose", kept_t)):
         if not torch.equal(torch.sort(got).values, torch.sort(want).values):
             raise AssertionError(f"{name} {what}: the shards keep {got.numel()} edges, the whole matrix {want.numel()}")
-    times = []
+    times, t_side = [], "transpose_dropout" if drop is not None else "transpose"
     for s, sh in enumerate(shards):
         xs = x_pad[s * blk : (s + 1) * blk].contiguous()
         row = {"shard": s, "nnz": sh.fwd.nnz, "rows": [sh.row_lo, sh.row_hi], "cols": sh.fwd.n_cols}
         gs = g_pad[sh.row_lo : sh.row_hi]
-        for side, mat, operand, dr in (("forward", sh.fwd, xs, None), ("transpose_dropout", sh.bwd, gs, drop)):
+        for side, mat, operand, dr in (("forward", sh.fwd, xs, None), (t_side, sh.bwd, gs, drop)):
             lib = torch.sparse_csr_tensor(mat.row_ptr, mat.col, mat.val if dr is None else
                                           dropout_values(mat.val, mat.eid, *dr), size=mat.shape)
             fns = (lambda m=mat, o=operand, dr=dr: spmm_csr_cuda(m, o, drop=dr),
@@ -1833,9 +1883,9 @@ def shard_rows(name, coo, shape, x, g, drop):
         f"kept edges = edge_uniform's ({want.numel()} of {whole.nnz}); per shard (ms single / windowed / "
         f"torch.sparse.mm windowed / bound): " + "; ".join(
             f"{r['shard']}: fwd {r['forward_ms']:.4f} / {r['forward_ms_windowed']:.4f} / "
-            f"{r['forward_library_ms_windowed']:.4f} / {r['forward_bound_ms']:.4f}, T drop "
-            f"{r['transpose_dropout_ms']:.4f} / {r['transpose_dropout_ms_windowed']:.4f} / "
-            f"{r['transpose_dropout_library_ms_windowed']:.4f} / {r['transpose_dropout_bound_ms']:.4f}" for r in times))
+            f"{r['forward_library_ms_windowed']:.4f} / {r['forward_bound_ms']:.4f}, {t_side} "
+            f"{r[t_side + '_ms']:.4f} / {r[t_side + '_ms_windowed']:.4f} / "
+            f"{r[t_side + '_library_ms_windowed']:.4f} / {r[t_side + '_bound_ms']:.4f}" for r in times))
     return shards, x_pad, g_pad, times, worst
 
 
@@ -1918,7 +1968,7 @@ def mesh_phase(ds, card, rng, work) -> dict:
     shard_routes = ("edge_shard", "edge_shard_dropout", "edge_shard_transpose", "edge_shard_transpose_dropout")
     if min(run_routes[r] for r in shard_routes) == 0 or sum(v for r, v in run_routes.items() if r not in shard_routes):
         raise AssertionError(f"the edge-mode run's launches {run_routes}")
-    if min(run_kinds.values()) == 0:
+    if min(run_kinds[k] for k in ("all_reduce", "reduce_scatter", "all_gather")) == 0:
         raise AssertionError(f"a kind of collective was not launched: {run_kinds}")
     log(f"edge-mode IGCN, one epoch of {edge.steps_per_epoch} steps: the first {MESH_STEPS_COMPARED} losses within "
         f"{diff.max():.3g} of the single-device trainer's; val NDCG@20 {init_ndcg:.6f} at init, {final:.6f} after; "
@@ -1954,7 +2004,7 @@ def mesh_phase(ds, card, rng, work) -> dict:
     edge.step()
     torch.cuda.synchronize()
     per_step = {k: v for k, v in spmm_csr_cuda.route_launches.items() if v}
-    per_step_kinds = dict(collective_counts.by_kind)
+    per_step_kinds = {k: v for k, v in collective_counts.by_kind.items() if v}
     want = {"edge_shard": 6, "edge_shard_dropout": 2, "edge_shard_transpose": 6, "edge_shard_transpose_dropout": 2}
     if per_step != want or per_step_kinds != {"all_reduce": 2, "reduce_scatter": 4, "all_gather": 4}:
         raise AssertionError(f"one edge-mode step launched {per_step} and collectives {per_step_kinds}")
@@ -2020,8 +2070,279 @@ def mesh_phase(ds, card, rng, work) -> dict:
     out["torchrun"] = {"nproc": n_cards, "run_s": run_s, "line": line, "launches": launched, "steps": cli_steps}
     log(f"torchrun --nproc_per_node {n_cards} ... --mesh 1,{n_cards} --mesh-mode edge: {run_s:.2f} s, {cli_steps} "
         f"steps; {line}; launches {launched}")
-    dist.destroy_process_group()
-    return out, fwd_row, t_row
+    return out, fwd_row, t_row, mesh
+
+
+def family_configs(name, ds, rng):
+    """(dataset, model config, trainer config) of ``name`` at its Gowalla
+    grid width, one epoch; IDCF_LGCN over a frozen table drawn from the seed
+    (phase 9 trains its LightGCN), NeuMF with its row's neg_ratio."""
+    if name in ("DOSE_aug", "DOSE_aug2", "DOSE_test"):
+        trainer = "DOSEtestTrainer" if name == "DOSE_test" else "DOSEaugTrainer"
+        return ds, dict(DOSE_CONFIG, name=name), dict(DOSE_TRAINER_CONFIG, name=trainer, n_epochs=1)
+    if name in ("SGL", "HALF"):
+        return ds, dict(SGL_CONFIG, name=name), dict(SGL_TRAINER_CONFIG, name=f"{name}Trainer")
+    if name == "AttIGCN":
+        return ds, dict(ATT_CONFIG), dict(TRAINER_CONFIG, n_epochs=1)
+    dataset_cfg, model_cfg, trainer_cfg = grid_row(name)
+    if name == "NeuMF":
+        ds = copy.copy(ds)
+        ds.negative_sample_ratio = dataset_cfg["neg_ratio"]
+    if name == "IDCF_LGCN":
+        model_cfg.pop("lgcn_path")
+        n, d = ds.n_users + ds.n_items, model_cfg["embedding_size"]
+        model_cfg["pretrained_embedding"] = rng.normal(0.0, 0.1, (n, d)).astype(np.float32)
+    return ds, model_cfg, dict(trainer_cfg, n_epochs=1)
+
+
+def family_steps(trainer, n=FAMILY_STEPS, grads=None) -> np.ndarray:
+    """``n`` steps' losses (MLTrainer: its first epoch's first batches);
+    ``grads`` (a dict) gets the first step's gradients."""
+    if hasattr(trainer, "batches"):
+        return np.array([float(trainer.step(u, v)) for u, v, _ in trainer.batches(0)[:n]])
+    losses = []
+    for i in range(n):
+        losses.append(float(trainer.step()))
+        if i == 0 and grads is not None:
+            grads.update(model_grads(trainer))
+    return np.array(losses)
+
+
+def model_grads(trainer) -> dict:
+    """The last step's gradients in the model's own layout (IMCGAE's edge
+    trainer holds its shared rows apart, as ``special``)."""
+    g = {k: trainer._to_model_layout(k, p.grad).clone() for k, p in trainer.params.items()}
+    if "special" in g:
+        g["embedding"] = torch.cat([g["embedding"], g.pop("special")])
+    return g
+
+
+def same_grads(what, got, want) -> float:
+    """Each parameter's gradient within REL_TOL of its largest entry (those
+    of ZERO_GRADS below 1e-6 of the largest of any); -> the largest error
+    over its bound."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: gradients of {sorted(got)}, the single-device trainer's of {sorted(want)}")
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if name.endswith(ZERO_GRADS):
+            err, bound = max(float(w.abs().max()), float(g.abs().max())), 1e-6 * top
+        else:
+            err, bound = float((g - w).abs().max()), REL_TOL * float(w.abs().max())
+        if not err <= bound:
+            raise AssertionError(f"{what}: the first step's gradient of {name} {err:.3g} from the single-device "
+                                 f"trainer's, over its bound {bound:.3g}")
+        worst = max(worst, err / bound if bound > 0 else 0.0)
+    return worst
+
+
+def same_losses(what, got, want) -> float:
+    diff = np.abs(got - want)
+    if not (np.isfinite(got).all() and (diff <= REL_TOL * np.maximum(1.0, np.abs(want))).all()):
+        raise AssertionError(f"{what}: losses {got} against the single-device trainer's {want}")
+    return float(diff.max())
+
+
+def counted_run(fn) -> tuple:
+    """``fn()`` with the launch and collective counts set to 0 just before
+    and read just after: (its result, launches by route, collectives by
+    kind); raises on a launch off the shard routes."""
+    reset_launch_counts()
+    reset_collective_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    routes = {k: v for k, v in spmm_csr_cuda.route_launches.items() if v}
+    if not routes or any(not r.startswith("edge_shard") for r in routes):
+        raise AssertionError(f"an edge-mode run launched {routes}")
+    return out, routes, dict(collective_counts.by_kind)
+
+
+def split_on_card(name, whole, route, x, g, drop=None):
+    """A SHARDS-way split of ``whole`` (a layout built on the device) cut on
+    the device (``build_edge_sharded_on_device``), held against the whole
+    product (:func:`check_split`). -> (shards, x padded, g padded, times, err)."""
+    rows, cols, vals, eid = whole.edge_rows().long(), whole.col.long(), whole.val, whole.eid.long()
+    shards = [build_edge_sharded_on_device(rows, cols, vals, eid, whole.shape, SHARDS, s, route=route)
+              for s in range(SHARDS)]
+    return check_split(name, whole, shards, x, g, drop)
+
+
+def attention_split(model, params, rng) -> tuple:
+    """AttIGCN's attention over a SHARDS-way column split of the feature
+    matrix on one card: each shard's scores and row maxima, the maxima
+    combined, each shard's exponentials and row sums, the sums combined (the
+    two all-reduces of ``parallel/attention.py``, here over the shards), then
+    each shard's product with its attention as edge values through the
+    kernel. The attention equals the single-device ``AttIGCN.attention``
+    edge by edge within REL_TOL; the partials summed, the whole product with
+    that attention within ``check_product``'s bound plus SHARDS - 1
+    roundings. -> (shard 0 with its attention, its operand rows, result)."""
+    d, h = model.embedding_size, model.n_heads
+    n, feat = model.n_users + model.n_items, model.feat
+    emb = params["embedding"][: model.feat_n_cols].detach()
+    with torch.no_grad():
+        whole_attn = model.attention(params)
+        q = (spmm_csr_cuda(feat, emb) @ params["weight_q.w"] + params["weight_q.b"]).reshape(-1, h, d)
+        qk = torch.einsum("nhd,vhd->nhv", q, params["weight_k.w"].reshape(d, h, d))
+        qb = torch.einsum("nhd,hd->nh", q, params["weight_k.b"].reshape(h, d))
+    rows, cols = feat.edge_rows().long(), feat.col.long()
+    shards = [values_shard(build_edge_sharded_on_device(rows, cols, feat.val, feat.eid.long(), feat.shape, SHARDS, s))
+              for s in range(SHARDS)]
+    blk, n_pad = shards[0].block, shards[0].n_rows_pad
+    v_pad = emb.new_zeros(shards[0].n_cols_pad, d)
+    v_pad[: model.feat_n_cols] = emb
+    qk_pad, qb_pad = qk.new_zeros(n_pad, h, d), qb.new_zeros(n_pad, h)
+    qk_pad[:n], qb_pad[:n] = qk, qb
+    with torch.no_grad():
+        parts = [shard_scores(sh, qk_pad, qb_pad, v_pad[s * blk : (s + 1) * blk]) for s, sh in enumerate(shards)]
+        row_max = torch.stack([shard_row_max(sh, *p) for sh, p in zip(shards, parts)]).amax(dim=0)
+        exps = [shard_exp(sc, row_max, g, model.temperature) for sc, g in parts]
+        den = torch.stack([den_s for _, den_s in exps]).sum(dim=0)
+        attn = [shard_attention_from(ex, den, g) for (ex, _), (_, g) in zip(exps, parts)]
+        by_eid = torch.zeros(int(feat.eid.max()) + 1, device=emb.device)
+        by_eid[feat.eid.long()] = whole_attn
+        got = torch.zeros_like(by_eid)
+        for sh, a in zip(shards, attn):
+            got[sh.fwd.eid.long()] = a
+        attn_err = close(got, by_eid, "the attention of a 4-way split against the single-device attention")
+        total = None
+        for s, (sh, a) in enumerate(zip(shards, attn)):
+            part = place_rows(sh, spmm_csr_cuda(sh.fwd, v_pad[s * blk : (s + 1) * blk].contiguous(), val=a))
+            total = part if total is None else total + part
+        whole = dataclasses.replace(model.att_feat, val=whole_attn)
+        res = check_product(f"AttIGCN attention, {SHARDS} shards summed", row_blocks(whole, d), emb, total[:n],
+                            extra_roundings=SHARDS - 1)
+    log(f"AttIGCN attention over a {SHARDS}-way split ({[sh.fwd.nnz for sh in shards]} edges): the attention within "
+        f"{attn_err:.3g} of the single-device one, the partials summed within {res['max_err_over_limit']:.3g} of "
+        f"their limit (max abs err {res['max_abs_err']:.3g})")
+    shard0 = dataclasses.replace(shards[0].fwd, val=attn[0])
+    return shard0, v_pad[:blk].contiguous(), {"attention_max_abs_err": attn_err, "product": res}
+
+
+def families_phase(ds, card, rng, mesh) -> tuple:
+    """Phase 13: the rest of the multi-GPU layer, over phase 12's group."""
+    t_phase = time.perf_counter()
+    out = {"edge": {}, "data": {}}
+    run_routes, run_kinds = {}, {}
+
+    def add(total, counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    kept = {}
+    for name in EDGE_FAMILIES + DATA_ONLY_FAMILIES:
+        data, model_cfg, trainer_cfg = family_configs(name, ds, rng)
+        model = get_model(model_cfg, data)
+        # the single-device reference, then data and edge mode on the same
+        # model: each trainer re-initialises its weights from the seed
+        single = get_trainer(trainer_cfg, data, model)
+        want_grads = {}
+        want = family_steps(single, grads=want_grads if name in EDGE_FAMILIES else None)
+        res = {"single_losses": want.tolist()}
+        dtr = get_trainer(trainer_cfg, data, model, mesh=mesh, mesh_mode="data")
+        res["data_loss_max_abs_diff"] = same_losses(f"{name} data mode", family_steps(dtr), want)
+        res["trainer"] = trainer_cfg["name"]
+        out["data"][name] = res
+        del dtr
+        if name not in EDGE_FAMILIES:
+            log(f"phase 13 {name} ({trainer_cfg['name']}), data mode: {FAMILY_STEPS} losses within "
+                f"{res['data_loss_max_abs_diff']:.3g} of the single-device trainer's")
+            continue
+        edge = get_trainer(trainer_cfg, data, model, mesh=mesh, mesh_mode="edge")
+        got_grads = {}
+        got, routes, kinds = counted_run(lambda: family_steps(edge, grads=got_grads))
+        add(run_routes, routes)
+        add(run_kinds, kinds)
+        res["edge_loss_max_abs_diff"] = same_losses(f"{name} edge mode", got, want)
+        res["edge_grad_max_err_over_bound"] = same_grads(f"{name} edge mode", got_grads, want_grads)
+        del got_grads, want_grads
+        _, per_step, per_step_kinds = counted_run(edge.step)
+        res.update(edge_launches_run=routes, edge_collectives_run=kinds, launches_per_step=per_step,
+                   collectives_per_step=per_step_kinds)
+        res["edge_step_ms"] = median_ms(edge.step, reps=10)
+        if not hasattr(single, "batches"):
+            res["single_step_ms"] = median_ms(single.step, reps=10)
+        # evaluate against the host oracle
+        metrics = edge.eval("test")[1]
+        oracle = calculate_metrics(data.test_data, edge.recommend("test"), edge.topks)
+        for metric in ("Precision", "Recall", "NDCG"):
+            for k in edge.topks:
+                if abs(oracle[metric][k] - metrics[metric][k]) > 1e-6:
+                    raise AssertionError(f"{name} edge evaluate {metric}@{k}: {metrics[metric][k]}, oracle "
+                                         f"{oracle[metric][k]}")
+        res["test_ndcg20"] = metrics["NDCG"][20]
+        if name in EPOCH_END_FAMILIES:
+            before = [v.fwd.nnz for v in edge.view_shards]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            edge.epoch_end()
+            torch.cuda.synchronize()
+            res["epoch_end_s"] = time.perf_counter() - t0
+            res["reshard_ms"] = host_ms(edge._refresh_views, 3)
+            keys = edge._views_spec[1]
+            for k, v in zip(keys, edge.view_shards):
+                if v.fwd.nnz != model.views[k].nnz or not torch.equal(torch.sort(v.fwd.eid).values,
+                                                                       torch.sort(model.views[k].eid).values):
+                    raise AssertionError(f"{name}: the shard of view {k} does not hold the view's edges")
+            if name == "DOSE_aug2" and edge.aug_shard is None:
+                raise AssertionError("DOSE_aug2: no augmented feature shard after the epoch end")
+            after, routes, kinds = counted_run(lambda: family_steps(edge, 2))
+            add(run_routes, routes)
+            add(run_kinds, kinds)
+            res.update(views_nnz_before=before, views_nnz_after=[v.fwd.nnz for v in edge.view_shards],
+                       losses_after_epoch_end=after.tolist(), launches_after_epoch_end=routes)
+            if not np.isfinite(after).all():
+                raise AssertionError(f"{name}: a loss after the epoch end is not finite")
+        log(f"phase 13 {name}: edge and data mode, {FAMILY_STEPS} losses each within "
+            f"{res['edge_loss_max_abs_diff']:.3g} / {res['data_loss_max_abs_diff']:.3g} of the single-device "
+            f"trainer's, the first step's gradients within {res['edge_grad_max_err_over_bound']:.3g} of their "
+            f"bounds; edge step {res['edge_step_ms']:.3f} ms (single-device {res.get('single_step_ms', 0):.3f}); "
+            f"launches a step {per_step}; collectives a step {per_step_kinds}; evaluate = the host oracle (test "
+            f"NDCG@20 {res['test_ndcg20']:.6f})" + (f"; epoch end {res['epoch_end_s']:.3f} s, the re-shard "
+                                                     f"{res['reshard_ms']} ms" if "epoch_end_s" in res else ""))
+        out["edge"][name] = res
+        if name in ("DOSE_aug", "DOSE_aug2", "AttIGCN"):
+            kept[name] = (model, edge)
+        del single, edge
+    out["edge_launches_run"], out["edge_collectives_run"] = run_routes, run_kinds
+    for route in ("edge_shard_view", "edge_shard_view_transpose", "edge_shard_aug_feat_dropout",
+                  "edge_shard_attention"):
+        if not run_routes.get(route):
+            raise AssertionError(f"phase 13's edge runs launched no {route}: {run_routes}")
+
+    # the 4-way splits on one card, against the whole products
+    d = DOSE_CONFIG["embedding_size"]
+    seed, p = int(rng.integers(0, 2**62)), DOSE_AUG2_CONFIG["dropout"]
+    model, _ = kept["DOSE_aug"]
+    view = model.views["aug_adj"]
+    x = torch.as_tensor(rng.normal(0.0, 0.1, (view.n_rows, d)), dtype=torch.float32, device=view.col.device)
+    with torch.no_grad():
+        shards, x_pad, g_pad, times, err_v = split_on_card("DOSE_aug view", view, "edge_shard_view", x, x, None)
+        v0 = shards[0]
+        view_row = measure_spmm("DOSE_aug view shard 0 of 4", v0.fwd, x_pad[: v0.block].contiguous())
+        view_t_row = measure_spmm("DOSE_aug view shard 0 of 4, transpose", v0.bwd, g_pad[v0.row_lo : v0.row_hi])
+        del shards
+        aug = kept["DOSE_aug2"][0].aug_feat
+        xa = torch.as_tensor(rng.normal(0.0, 0.1, (aug.n_cols, d)), dtype=torch.float32, device=aug.col.device)
+        ga = torch.as_tensor(rng.normal(0.0, 0.1, (aug.n_rows, d)), dtype=torch.float32, device=aug.col.device)
+        shards, xa_pad, _, times_a, err_a = split_on_card("DOSE_aug2 augmented feature matrix", aug,
+                                                          "edge_shard_aug_feat", xa, ga, (seed, p))
+        a0 = shards[0]
+        aug_row = measure_spmm("DOSE_aug2 augmented feature shard 0 of 4, dropout", a0.fwd,
+                               xa_pad[: a0.block].contiguous(), drop=(seed, p))
+        del shards
+    att_model, att_edge = kept["AttIGCN"]
+    att0, v0_rows, att_res = attention_split(att_model, att_edge._model_params(), rng)
+    with torch.no_grad():
+        att_row = measure_spmm("AttIGCN attention shard 0 of 4", att0, v0_rows)
+    out["splits"] = {"view": {"times": times, "max_abs_err": err_v}, "aug_feat": {"times": times_a, "max_abs_err": err_a},
+                     "attention": att_res}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 took {out['phase_s']:.1f} s")
+    del kept
+    return out, {"view": view_row, "view_transpose": view_t_row, "aug_feat_dropout": aug_row, "attention": att_row}
 
 
 def main():
@@ -2300,8 +2621,14 @@ def main():
         front = front_door_phase(card, {r: k for r, k in train["launches_per_step"].items() if k}, rng, work)
         log("front door: " + json.dumps(front))
         kernel.update(launches_cli=front["cli"]["launches"], route_launches_cli=front["cli"]["route_launches"])
-        mesh, shard_fwd, shard_t = mesh_phase(ds, card, rng, work)
+        try:
+            mesh, shard_fwd, shard_t, the_mesh = mesh_phase(ds, card, rng, work)
+            families, frows = families_phase(ds, card, rng, the_mesh)
+        finally:  # the group's store is in this directory: leave it before the directory goes
+            if dist.is_initialized():
+                dist.destroy_process_group()
     log("mesh: " + json.dumps(mesh))
+    log("families: " + json.dumps(families))
     max_err = max(max_err, mesh["shard_max_abs_err"], shard_fwd["max_abs_err"], shard_t["max_abs_err"])
     mroutes, mstep = mesh["train"]["route_launches_run"], mesh["train"]["launches_per_step"]
     shard_entries = [
@@ -2318,7 +2645,31 @@ def main():
     ]
     for e in shard_entries:
         e["collectives_per_step"] = mesh["train"]["collectives_per_step"]
-    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *shard_entries]}))
+    max_err = max(max_err, *(r["max_abs_err"] for r in frows.values()))
+    fruns, fedge = families["edge_launches_run"], families["edge"]
+    family_entries = [
+        entry("spmm_csr_edge_shard_view", frows["view"], fruns["edge_shard_view"],
+              fedge["DOSE_aug"]["launches_per_step"]["edge_shard_view"],
+              f"a rank's product with its shard of a DOSE_aug view (shard 0 of a {SHARDS}-way column split of the "
+              "view selected at the epoch end, cut on the device); launches: phase 13's edge-mode runs of DOSE_aug, "
+              "DOSE_aug2, SGL and HALF", [frows["view"]]),
+        entry("spmm_csr_edge_shard_view_transpose", frows["view_transpose"], fruns["edge_shard_view_transpose"],
+              fedge["DOSE_aug"]["launches_per_step"]["edge_shard_view_transpose"],
+              "its backward: the shard's own transpose CSR (a block of a symmetric view is not symmetric) @ the "
+              "all-gathered cotangent", [frows["view_transpose"]]),
+        entry("spmm_csr_edge_shard_aug_feat_dropout", frows["aug_feat_dropout"], fruns["edge_shard_aug_feat_dropout"],
+              fedge["DOSE_aug2"]["launches_after_epoch_end"]["edge_shard_aug_feat_dropout"] // 2,
+              f"shard 0 of a {SHARDS}-way split of DOSE_aug2's augmented feature matrix under dropout "
+              f"(p {DOSE_AUG2_CONFIG['dropout']}, keyed by the global edge id); launches: DOSE_aug2's edge-mode steps "
+              "after its epoch end", [frows["aug_feat_dropout"]]),
+        entry("spmm_csr_edge_shard_attention", frows["attention"], fruns["edge_shard_attention"],
+              fedge["AttIGCN"]["launches_per_step"]["edge_shard_attention"],
+              f"shard 0 of a {SHARDS}-way split of the feature matrix with its {ATT_CONFIG['n_heads']}-head "
+              "attention as edge values (the row maxima and sums combined over the shards); launches: AttIGCN's "
+              "edge-mode run", [frows["attention"]]),
+    ]
+    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *shard_entries,
+                                  *family_entries]}))
     print(
         json.dumps(
             {

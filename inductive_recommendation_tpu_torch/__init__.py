@@ -39,8 +39,9 @@ utilities and the command line:
     python -m inductive_recommendation_tpu_torch --grid gowalla --index 2 --stage test
 
 and the multi-GPU layer (``parallel/``: one process a card over NCCL, a
-('data', 'model') mesh, the edge-sharded SpMM, item-sharded retrieval, the
-data- and edge-mode LightGCN / IGCN steps, ``EdgeShardedTrainer``):
+('data', 'model') mesh, the edge-sharded SpMM, AttIGCN's sharded attention,
+item-sharded retrieval, data mode for every trainer, ``EdgeShardedTrainer``
+for every model with a graph propagation):
 
     torchrun --standalone --nproc_per_node 4 -m inductive_recommendation_tpu_torch --grid gowalla --index 2 \
         --mesh 1,4 --mesh-mode edge

@@ -64,9 +64,10 @@ def build_argparser():
     )
     p.add_argument(
         "--mesh-mode", choices=["data", "edge"], default="data",
-        help="'data': data-parallel batches, embedding tables row-sharded over 'model' (BPRTrainer, IGCNTrainer). "
+        help="'data': data-parallel batches, embedding tables row-sharded over 'model' (every trainer). "
         "'edge': the graph, the table and its Adam moments sharded over 'model', batches over 'data' "
-        "(LightGCN, IGCN, IMF)",
+        "(every model with a graph propagation: LightGCN, IGCN, IMF, the DOSE variants, SGL, HALF, NGCF, "
+        "IMCGAE, IDCF_LGCN, AttIGCN)",
     )
     p.add_argument(
         "--device", default=None,

@@ -209,17 +209,20 @@ class _DOSEBase(IGCN):
         return propagate_mean(self.views[key], x0, self.n_layers)[users]
 
     # -- forward ---------------------------------------------------------------
-    def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
+    def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None, negatives=None):
         """-> (users_r, pos_r, neg_r, l2, contrastive): IGCN's BPR terms on the
-        main graph and the [B] per-user contrastive loss."""
+        main graph and the [B] per-user contrastive loss. ``negatives`` maps
+        a batch's view rows to InfoNCE's negative keys (default: the rows
+        themselves; data mode gathers the whole batch's)."""
         users_r, pos_r, neg_r, l2 = super().bpr_forward(
             params, users, pos_items, neg_items, training=training, generator=generator
         )
-        return users_r, pos_r, neg_r, l2, self._contrastive(params, users, users_r, training, generator)
+        neg = negatives or (lambda v: v)
+        return users_r, pos_r, neg_r, l2, self._contrastive(params, users, users_r, training, generator, neg)
 
-    def _contrastive(self, params, users, users_r, training, generator):
+    def _contrastive(self, params, users, users_r, training, generator, neg):
         v = self.view_users(params, self.view_keys[0], users, training, generator)
-        return info_nce(users_r, v, v)
+        return info_nce(users_r, v, neg(v))
 
 
 # -- injection variants -----------------------------------------------------------
@@ -428,10 +431,10 @@ class TEST2(DOSE_drop2):
 
     view_keys = ("aug_adj", "aug_adj2")
 
-    def _contrastive(self, params, users, users_r, training, generator):
+    def _contrastive(self, params, users, users_r, training, generator, neg):
         v1 = self.view_users(params, "aug_adj", users, training, generator)
         v2 = self.view_users(params, "aug_adj2", users, training, generator)
-        return info_nce(v1, v2, v2)
+        return info_nce(v1, v2, neg(v2))
 
 
 # -- combined variants ------------------------------------------------------------
@@ -453,10 +456,10 @@ class DOSE_aug_drop(_DOSEBase):
     def _initial_view(self, key):
         return self._make_view(key, None)
 
-    def _contrastive(self, params, users, users_r, training, generator):
+    def _contrastive(self, params, users, users_r, training, generator, neg):
         v_aug = self.view_users(params, "aug_adj", users, training, generator)
         v_drop = self.view_users(params, "aug_adj", users, training, generator)
-        return info_nce(users_r, v_aug, v_aug) + info_nce(users_r, v_drop, v_drop)
+        return info_nce(users_r, v_aug, neg(v_aug)) + info_nce(users_r, v_drop, neg(v_drop))
 
 
 class DOSE_aug_drop2(_DOSEBase):
@@ -490,9 +493,9 @@ class DOSE_aug_drop2(_DOSEBase):
         view = self._make_view("aug_adj", params)
         self.views = {"aug_adj": view, "drop_adj": view}
 
-    def _contrastive(self, params, users, users_r, training, generator):
+    def _contrastive(self, params, users, users_r, training, generator, neg):
         v = self.view_users(params, "drop_adj", users, training, generator)
-        return info_nce(users_r, v, v)
+        return info_nce(users_r, v, neg(v))
 
 
 class DOSE_aug_drop3(_DOSEBase):
@@ -510,9 +513,9 @@ class DOSE_aug_drop3(_DOSEBase):
             "drop_adj": eng.make_view_on_device(keep_pair_mask=eng.keep_mask_from_drop_pairs_on_device(pairs)),
         }
 
-    def _contrastive(self, params, users, users_r, training, generator):
+    def _contrastive(self, params, users, users_r, training, generator, neg):
         v = self.view_users(params, "drop_adj", users, training, generator)
-        return info_nce(users_r, v, v)
+        return info_nce(users_r, v, neg(v))
 
 
 class DOSE_test(DOSE_aug):
@@ -520,6 +523,6 @@ class DOSE_test(DOSE_aug):
     contrastive slot (model.py:3843-3855); DOSEtestTrainer takes their mean
     as the "contrastive" term, as the reference does."""
 
-    def _contrastive(self, params, users, users_r, training, generator):
+    def _contrastive(self, params, users, users_r, training, generator, neg):
         return self.view_users(params, "aug_adj", users, training, generator)
 

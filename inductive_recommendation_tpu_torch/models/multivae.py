@@ -56,7 +56,7 @@ class MultiVAE(BasicModel):
         device from a generator seeded by the CPU ``generator``, unless given."""
         h = self.profiles(users)
         draws = None
-        if training and (keep is None or eps is None):
+        if training and ((keep is None and self.dropout > 0) or eps is None):
             draws = device_generator(generator, h.device)
         if training and self.dropout > 0:
             if keep is None:
@@ -85,6 +85,16 @@ class MultiVAE(BasicModel):
         scores = linear(params, f"decoder.{n_d - 1}", h)
         l2 = l2 + (params[f"decoder.{n_d - 1}.w"] ** 2).sum()
         return scores, kl, l2
+
+    def draw_noise(self, batch_size: int, generator=None):
+        """(keep, eps) of a training batch of ``batch_size`` users, drawn as
+        :meth:`ml_forward` draws them (keep None at dropout 0): a data-mode
+        rank draws the whole batch's and keeps its rows."""
+        draws = device_generator(generator, self.device)
+        keep = None
+        if self.dropout > 0:
+            keep = dropout_keep((batch_size, self.n_items), self.dropout, draws, self.device)
+        return keep, torch.randn((batch_size, self.mid_size), generator=draws, device=self.device)
 
     def make_scoring_state(self, params):
         return params

@@ -90,23 +90,25 @@ class SGL(LightGCN):
         emb = params["embedding"][: self.n_users + self.n_items]
         return propagate_mean(self.views[key], emb, self.n_layers)[users]
 
-    def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
+    def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None, negatives=None):
         """-> (users_r, pos_r, neg_r, l2, contrastive): the propagated reps of
         the batch, L2 on those reps (model.py:224-225), and the [B]
-        per-user InfoNCE."""
+        per-user InfoNCE; ``negatives`` maps a batch's view rows to its
+        negative keys (default: the rows themselves)."""
         rep = self.get_rep(params, training=training)
         users_r, pos_r, neg_r = rep[users], rep[self.n_users + pos_items], rep[self.n_users + neg_items]
-        return users_r, pos_r, neg_r, l2_sq_rows(users_r, pos_r, neg_r), self._contrastive(params, users, users_r)
+        closs = self._contrastive(params, users, users_r, negatives or (lambda v: v))
+        return users_r, pos_r, neg_r, l2_sq_rows(users_r, pos_r, neg_r), closs
 
-    def _contrastive(self, params, users, users_r):
+    def _contrastive(self, params, users, users_r, neg):
         v1 = self.view_users(params, "aug_adj1", users)
         v2 = self.view_users(params, "aug_adj2", users)
-        return info_nce(v1, v2, v2)
+        return info_nce(v1, v2, neg(v2))
 
 
 class HALF(SGL):
     view_keys = ("aug_adj1",)
 
-    def _contrastive(self, params, users, users_r):
+    def _contrastive(self, params, users, users_r, neg):
         v1 = self.view_users(params, "aug_adj1", users)
-        return info_nce(users_r, v1, v1)
+        return info_nce(users_r, v1, neg(v1))

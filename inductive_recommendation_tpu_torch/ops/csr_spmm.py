@@ -132,14 +132,14 @@ def build_csr_spmm(row, col, val, shape, symmetric: bool = False, device="cpu") 
     return _one_side(row, col, val, eid, n_rows, n_cols, device, transpose=transpose)
 
 
-def csr_on_device(rows, cols, vals, shape, **flags) -> CsrSpMM:
+def csr_on_device(rows, cols, vals, shape, eid=None, **flags) -> CsrSpMM:
     """CSR of COO triples already on a device (torch tensors), with rows
     sorted stably and explicit zeros dropped, built there with no host copy;
-    ``eid`` is an edge's position in the triples. No transpose is built:
-    ``flags`` (``symmetric``, ``transposed``, ``route``) say what the layout
-    is."""
+    ``eid`` is an edge's position in the triples unless given (one id per
+    triple). No transpose is built: ``flags`` (``symmetric``, ``transposed``,
+    ``route``) say what the layout is."""
     keep = vals != 0
-    eid = torch.nonzero(keep).flatten()
+    eid = torch.nonzero(keep).flatten() if eid is None else eid[keep]
     rows, cols, vals = rows[keep], cols[keep], vals[keep]
     if rows.shape[0] >= 2**31:
         raise ValueError(f"nnz {rows.shape[0]} does not fit the int32 CSR")
@@ -321,10 +321,14 @@ ROUTES = (
     "forward", "transpose", "forward_dropout", "transpose_dropout", "view",
     "attention", "attention_transpose", "aug_feat", "aug_feat_transpose",
     "edge_shard", "edge_shard_transpose", "edge_shard_dropout", "edge_shard_transpose_dropout",
+    "edge_shard_view", "edge_shard_view_transpose",
+    "edge_shard_aug_feat", "edge_shard_aug_feat_transpose",
+    "edge_shard_aug_feat_dropout", "edge_shard_aug_feat_transpose_dropout",
+    "edge_shard_attention", "edge_shard_attention_transpose",
 )
 
 # routed layouts whose products under dropout count apart
-_DROPOUT_ROUTES = ("edge_shard",)
+_DROPOUT_ROUTES = ("edge_shard", "edge_shard_aug_feat")
 
 
 def route_key(mat: CsrSpMM, drop=None) -> str:
@@ -336,7 +340,10 @@ def route_key(mat: CsrSpMM, drop=None) -> str:
     ``attention`` / ``attention_transpose``; ``aug_feat`` /
     ``aug_feat_transpose``; a shard of the multi-GPU layer's edge-sharded
     product, ``edge_shard`` and ``edge_shard_transpose``, each with
-    ``_dropout`` under dropout)."""
+    ``_dropout`` under dropout; a shard of a per-epoch view, of DOSE_aug2's
+    augmented feature matrix (with ``_dropout``) or of AttIGCN's attention,
+    ``edge_shard_view``, ``edge_shard_aug_feat``, ``edge_shard_attention``,
+    each with its ``_transpose``)."""
     dropout = "" if drop is None else "_dropout"
     if mat.route is None:
         return ("transpose" if mat.transposed else "forward") + dropout

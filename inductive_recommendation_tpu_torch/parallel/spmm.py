@@ -36,6 +36,16 @@ drops exactly the edges the single-device product drops under the same
 seed. The JAX package draws i.i.d. per shard instead (a hash of the shard
 index and the local edge id, its spmm.py:349-353): the same keep/rescale
 algebra, other masks. Every rank of a 'model' group passes the same seed.
+
+Per-epoch layouts (a DOSE / SGL view, DOSE_aug2's augmented feature matrix)
+are built on the device each epoch; :func:`shard_csr` cuts this rank's
+column block out of such a whole CSR there, with the same row window and
+the whole layout's edge ids, and builds the block's transpose from the same
+triples (a block of a symmetric view is not symmetric). Their launches
+count under their own routes (``edge_shard_view``, ``edge_shard_aug_feat``).
+:func:`edge_sharded_spmm_values` is the product with per-edge values given
+as an argument (AttIGCN's attention), differentiable in both, on a shard's
+:func:`values_shard`.
 """
 
 from __future__ import annotations
@@ -44,9 +54,19 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, _check_dropout, _one_side, _product, with_annealed_values
-from inductive_recommendation_tpu_torch.parallel.collectives import all_gather, all_reduce, reduce_scatter
+from inductive_recommendation_tpu_torch.ops.csr_spmm import (
+    CsrSpMM,
+    _check_dropout,
+    _one_side,
+    _product,
+    csr_on_device,
+    spmm_csr_values,
+    values_layout,
+    with_annealed_values,
+)
+from inductive_recommendation_tpu_torch.parallel.collectives import all_gather, all_reduce, reduce_scatter, scatter_rows
 from inductive_recommendation_tpu_torch.parallel.mesh import axis_size, local_rows, mesh_device
 
 ROUTE = "edge_shard"
@@ -89,6 +109,10 @@ class EdgeShardedSpMM:
         return self.fwd.T
 
 
+def _padded(n_rows, n_cols, n_shards):
+    return -(-n_rows // n_shards) * n_shards, -(-n_cols // n_shards) * n_shards
+
+
 def build_edge_sharded_spmm(row, col, val, shape, n_shards: int, rank: int, device="cpu") -> EdgeShardedSpMM:
     """Rank ``rank``'s shard, from the whole (coalesced) COO arrays (numpy).
 
@@ -107,8 +131,7 @@ def build_edge_sharded_spmm(row, col, val, shape, n_shards: int, rank: int, devi
     if len(eid) and eid[-1] >= 2**31:
         raise ValueError(f"edge id {eid[-1]} does not fit the int32 CSR")
     n_rows, n_cols = (int(s) for s in shape)
-    n_rows_pad = -(-n_rows // n_shards) * n_shards
-    n_cols_pad = -(-n_cols // n_shards) * n_shards
+    n_rows_pad, n_cols_pad = _padded(n_rows, n_cols, n_shards)
     blk = n_cols_pad // n_shards
     m = (col >= rank * blk) & (col < (rank + 1) * blk)
     r, c, v, e = row[m], col[m] - rank * blk, val[m], eid[m]
@@ -128,6 +151,57 @@ def build_edge_sharded_spmm(row, col, val, shape, n_shards: int, rank: int, devi
         row_lo=lo,
         row_hi=hi,
     )
+
+
+def build_edge_sharded_on_device(rows, cols, vals, eid, shape, n_shards: int, rank: int,
+                                 route: str = ROUTE) -> EdgeShardedSpMM:
+    """Rank ``rank``'s shard from COO triples already on a device (int64
+    ``rows`` / ``cols`` / ``eid``, fp32 ``vals``, torch tensors), built there:
+    the column block filtered on the device, the row window read back as two
+    integers, the block's CSR and its transpose built from the same triples
+    (``ops.csr_spmm.csr_on_device``) with the global edge ids ``eid``."""
+    if not 0 <= rank < n_shards:
+        raise ValueError(f"rank {rank} outside {n_shards} shards")
+    n_rows, n_cols = (int(x) for x in shape)
+    n_rows_pad, n_cols_pad = _padded(n_rows, n_cols, n_shards)
+    blk = n_cols_pad // n_shards
+    if eid.numel() and int(eid.max()) >= 2**31:
+        raise ValueError(f"edge id {int(eid.max())} does not fit the int32 CSR")
+    m = (cols >= rank * blk) & (cols < (rank + 1) * blk) & (vals != 0)
+    r, c, v, e = rows[m], cols[m] - rank * blk, vals[m], eid[m]
+    lo, hi = (0, 0) if r.numel() == 0 else (int(x) for x in torch.stack([r.min(), r.max() + 1]).tolist())
+    transpose = csr_on_device(c, r - lo, v, (blk, hi - lo), eid=e, transposed=True, route=route)
+    fwd = csr_on_device(r - lo, c, v, (hi - lo, blk), eid=e, transpose=transpose, route=route)
+    return EdgeShardedSpMM(
+        fwd=fwd, eid_map=e, n_rows=n_rows, n_cols=n_cols, n_rows_pad=n_rows_pad, n_cols_pad=n_cols_pad,
+        n_shards=int(n_shards), rank=int(rank), nnz=int((vals != 0).sum()), row_lo=lo, row_hi=hi,
+    )
+
+
+def shard_csr(mat: CsrSpMM, mesh, route: str) -> EdgeShardedSpMM:
+    """This rank's shard of a whole CSR built on the device (a per-epoch
+    view or augmented feature matrix), with ``mat``'s edge ids, so that a
+    dropout seed drops the edges the whole layout drops under it."""
+    return build_edge_sharded_on_device(
+        mat.edge_rows().long(), mat.col.long(), mat.val, mat.eid.long(), mat.shape,
+        axis_size(mesh, "model"), mesh.get_local_rank("model"), route=route,
+    )
+
+
+def values_shard(emat: EdgeShardedSpMM, route: str = "edge_shard_attention") -> EdgeShardedSpMM:
+    """The shard's structure as a values layout (``ops.csr_spmm.values_layout``)
+    for :func:`edge_sharded_spmm_values`."""
+    return dataclasses.replace(emat, fwd=values_layout(emat.fwd, route=route))
+
+
+def edge_sharded_spmm_values(emat: EdgeShardedSpMM, x: torch.Tensor, values: torch.Tensor, group) -> torch.Tensor:
+    """This rank's ``[row_block, d]`` rows of A_v @ x with the shard's edge
+    values ``values`` [nnz of the shard] as an argument, differentiable in
+    ``x`` (this rank's operand rows) and ``values``: the kernel on the
+    shard's values layout (:func:`values_shard`), the rows placed in the
+    padded row space, then a reduce-scatter."""
+    part = spmm_csr_values(emat.fwd, x.contiguous(), values)
+    return scatter_rows(F.pad(part, (0, 0, emat.row_lo, emat.n_rows_pad - emat.row_hi)), group)
 
 
 def build_for_mesh(row, col, val, shape, mesh) -> EdgeShardedSpMM:

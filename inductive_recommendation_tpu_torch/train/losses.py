@@ -23,13 +23,15 @@ def bce_losses(pos_logits, neg_logits) -> torch.Tensor:
     return torch.cat([softplus(-pos_logits), softplus(neg_logits)])
 
 
-def multinomial_ll_loss(scores, profiles, valid=None) -> torch.Tensor:
+def multinomial_ll_loss(scores, profiles, valid=None, n_valid=None) -> torch.Tensor:
     """-sum(profile * log_softmax(scores)) averaged over users; ``valid``
-    (optional [B] 0/1 weights) leaves padded batch rows out of the mean."""
+    (optional [B] 0/1 weights) leaves padded batch rows out of the mean, and
+    ``n_valid`` (default ``valid.sum()``) is the count the sum is divided by
+    (a data-mode slice divides by its whole batch's)."""
     ml = -(profiles * log_softmax(scores, dim=1)).sum(dim=1)
     if valid is None:
         return ml.mean()
-    return (ml * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return (ml * valid).sum() / torch.clamp(valid.sum() if n_valid is None else n_valid, min=1.0)
 
 
 def aux_bpr_rows(au, ap, an, w) -> torch.Tensor:

@@ -31,14 +31,16 @@ its optimizer state does not (``load_state`` raises), since optax's Adam
 tree is not ``torch.optim.Adam``'s.
 
 Under a mesh (``get_trainer(..., mesh=make_mesh(...))``, one process per
-card, ``parallel/``), ``BPRTrainer`` and ``IGCNTrainer`` train data-parallel
+card, ``parallel/``), every trainer trains data-parallel
 (``parallel/step.py``'s data mode: every rank draws the same global batch
 and keeps its slice, tables row-sharded over 'model' with their Adam
-moments), and evaluation runs the mesh evaluator; ``mesh_mode="edge"``
-shards the graph too (``train/edge_trainer.py``). Checkpoints hold the
-model's own layout, written by rank 0 behind a barrier, so a single-device
-trainer loads them. The other trainers raise on a mesh: their data mode
-comes with the next slice of the port.
+moments; a contrastive loss gathers the whole batch's view rows as its
+negatives; the draws a model makes over the whole batch, MultiVAE's noise,
+are made whole on every rank; the epoch ends run alike on every rank from
+the same generator state), and evaluation runs the mesh evaluator;
+``mesh_mode="edge"`` shards the graph too (``train/edge_trainer.py``).
+Checkpoints hold the model's own layout, written by rank 0 behind a
+barrier, so a single-device trainer loads them.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from inductive_recommendation_tpu_torch.data.dataset import AuxiliaryDataset
 from inductive_recommendation_tpu_torch.data.sampling import build_sampler_state, sample_bpr_batch
 from inductive_recommendation_tpu_torch.eval.evaluator import Evaluator
 from inductive_recommendation_tpu_torch.parallel.mesh import gather_rows, local_rows, param_spec, shard_params
-from inductive_recommendation_tpu_torch.parallel.step import make_sharded_bpr_step, make_sharded_igcn_step
+from inductive_recommendation_tpu_torch.parallel.step import gather_negatives, make_data_step, mean_loss_on_slice
 from inductive_recommendation_tpu_torch.train.checkpoint import JAX_FORMAT, load_checkpoint, save_checkpoint
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, multinomial_ll_loss
 
@@ -105,17 +107,18 @@ class BasicTrainer:
         self.params = model.init_params(self.generator)
         # the model's own parameter shapes: checkpoints hold this layout
         self._shapes = {name: tuple(p.shape) for name, p in self.params.items()}
-        if self.mesh is not None and self._data_mesh:
-            if type(self) not in (BPRTrainer, IGCNTrainer):
-                raise ValueError(
-                    f"{self.name} has no mesh route yet: data-parallel training covers BPRTrainer and IGCNTrainer, "
-                    "the other trainers wait for the next slice of the port"
-                )
+        self._mesh_step = None
+        if self.data_parallel:
             if self.batch_size % self.mesh.size():
                 raise ValueError(f"batch_size {self.batch_size} must divide over the mesh ({self.mesh.size()} ranks)")
             self.params = shard_params(self.params, self.mesh)
         self.optimizer = None
         self.steps_per_epoch = max(1, -(-len(dataset) // self.batch_size))
+
+    @property
+    def data_parallel(self) -> bool:
+        """Training data-parallel over a mesh (not edge mode)."""
+        return self.mesh is not None and self._data_mesh
 
     @property
     def is_writer(self) -> bool:
@@ -158,18 +161,40 @@ class BasicTrainer:
         self.optimizer = opt_cls(list(self.params.values()), lr=self.config["lr"])
 
     # -- one step ------------------------------------------------------------
+    def sample(self):
+        """The step's global batch, a tuple of tensors."""
+        raise NotImplementedError
+
+    def batch_loss(self, params, *batch, negatives=None) -> torch.Tensor:
+        """The mean-based objective of ``batch`` (or of a data-mode slice of
+        it) with ``params``; ``negatives`` maps a slice's view rows to the
+        whole batch's (contrastive losses)."""
+        raise NotImplementedError
+
     def loss(self, *batch) -> torch.Tensor:
         """The loss of one batch, with its autograd graph: a freshly sampled
-        one unless the trainer takes its batches as arguments."""
-        raise NotImplementedError
+        one unless given."""
+        return self.batch_loss(self.params, *(batch or self.sample()))
+
+    def _local_loss(self):
+        """Data mode: this rank's term of the global loss (``make_data_step``)."""
+        return mean_loss_on_slice(lambda full, *b: self.batch_loss(full, *b, negatives=gather_negatives),
+                                  self.batch_size)
 
     def step(self, *batch) -> torch.Tensor:
         """One optimizer step; returns the batch loss as a device scalar."""
+        if self.data_parallel:
+            if self._mesh_step is None:
+                self._mesh_step = make_data_step(lambda: self.optimizer, self.params, self.batch_size, self.mesh,
+                                                 self._local_loss(), prepare=self._prepare_batch)
+            return self._mesh_step(*(batch or self.sample()))
         loss = self.loss(*batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
+
+    _prepare_batch = None
 
     def train_one_epoch(self) -> float:
         return _epoch_mean([self.step() for _ in range(self.steps_per_epoch)])
@@ -215,7 +240,7 @@ class BasicTrainer:
         counters (trainer.py:188-199 of the JAX package); other models have
         no such hook."""
         if hasattr(self.model, "rebuild_views"):
-            self.model.rebuild_views(self.params)
+            self.model.rebuild_views(self._model_params())
 
     # -- full training-state resume -----------------------------------------
     def save_state(self, path):
@@ -348,24 +373,14 @@ class BPRTrainer(BasicTrainer):
         self.l2_reg = trainer_config["l2_reg"]
         self.initialize_optimizer()
         self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
-        if self.mesh is not None and self._data_mesh:
-            self._mesh_step = make_sharded_bpr_step(
-                model, self.optimizer, self.params, self.batch_size, self.l2_reg, self.mesh, self.host_generator
-            )
 
     def sample(self):
         """The step's batch: (users, pos, neg) of the global batch."""
         users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size)
         return users, pos, neg[:, 0]
 
-    def step(self, *batch):
-        if self.mesh is None:
-            return super().step(*batch)
-        return self._mesh_step(*(batch or self.sample()))
-
-    def loss(self):
-        users, pos, neg = self.sample()
-        out = self.model.bpr_forward(self.params, users, pos, neg, training=True, generator=self.host_generator)
+    def batch_loss(self, params, users, pos, neg, negatives=None):
+        out = self.model.bpr_forward(params, users, pos, neg, training=True, generator=self.host_generator)
         return self._objective(out)
 
     def _objective(self, out):
@@ -389,11 +404,18 @@ class ContrastiveBPRTrainer(BPRTrainer):
 
 class SGLTrainer(ContrastiveBPRTrainer):
     """SGL's trainer (JAX trainer.py:472-529): the contrastive BPR loss, and
-    at every epoch end the model's drop views regenerated."""
+    at every epoch end the model's drop views regenerated. The InfoNCE
+    takes its negatives from the batch's view rows (``negatives``: a
+    data-mode slice's rows -> the whole batch's)."""
+
+    def batch_loss(self, params, users, pos, neg, negatives=None):
+        out = self.model.bpr_forward(params, users, pos, neg, training=True, generator=self.host_generator,
+                                     negatives=negatives)
+        return self._objective(out)
 
     def train_one_epoch(self):
         loss = super().train_one_epoch()
-        self.model.update_aug_adj(self.params)
+        self.model.update_aug_adj()
         return loss
 
 
@@ -403,7 +425,8 @@ class HALFTrainer(SGLTrainer):
 
 class IDCFTrainer(ContrastiveBPRTrainer):
     """IDCF_LGCN's trainer (reference trainer.py:488-515): the contrastive BPR
-    loss, no view to regenerate at the epoch end."""
+    loss, no view to regenerate at the epoch end. Its contrastive term is
+    per node, so a data-mode slice needs no other rows."""
 
 
 class BCETrainer(BasicTrainer):
@@ -423,10 +446,13 @@ class BCETrainer(BasicTrainer):
         self.initialize_optimizer()
         self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
 
-    def loss(self):
-        users, pos, neg = sample_bpr_batch(self.sampler, self.generator, self.batch_size, neg_ratio=self.neg_ratio)
-        pos_logits, l2_p = self.model.bce_forward(self.params, users, pos)
-        neg_logits, l2_n = self.model.bce_forward(self.params, users.repeat_interleave(self.neg_ratio), neg.reshape(-1))
+    def sample(self):
+        """(users [B], pos [B], neg [B, neg_ratio])."""
+        return sample_bpr_batch(self.sampler, self.generator, self.batch_size, neg_ratio=self.neg_ratio)
+
+    def batch_loss(self, params, users, pos, neg, negatives=None):
+        pos_logits, l2_p = self.model.bce_forward(params, users, pos)
+        neg_logits, l2_n = self.model.bce_forward(params, users.repeat_interleave(self.neg_ratio), neg.reshape(-1))
         return bce_losses(pos_logits, neg_logits).mean() + self.l2_reg * torch.cat([l2_p, l2_n]).mean()
 
     def _switch_arch(self, arch):
@@ -439,12 +465,22 @@ class BCETrainer(BasicTrainer):
         self.initialize_optimizer()
         self.best_ndcg = -np.inf
 
+    @torch.no_grad()
+    def _init_mlp_layers(self):
+        """The model re-initializes its MLP layers and fusion weights in
+        place; a data-mode trainer's parameters are its own tensors, so the
+        fresh values are copied into them."""
+        fresh = self.model.init_mlp_layers(torch.Generator(device=self.device).manual_seed(self.seed + 7))
+        for name, t in fresh.items():
+            if (name.startswith("mlp_layers.") or name == "output_w") and self.params[name] is not t:
+                self.params[name].copy_(self._to_local_layout(name, t))
+
     def train_one_epoch(self):
         if self.epoch == self.mf_pretrain_epochs:
             self._switch_arch("mlp")
         if self.epoch == self.mf_pretrain_epochs + self.mlp_pretrain_epochs:
             self._switch_arch("neumf")
-            self.model.init_mlp_layers(torch.Generator(device=self.device).manual_seed(self.seed + 7))
+            self._init_mlp_layers()
         return super().train_one_epoch()
 
 
@@ -456,7 +492,9 @@ class MLTrainer(BasicTrainer):
     An epoch's user order is ``np.random.default_rng((seed, 61, epoch))``'s
     permutation, as in the JAX package; the last batch is padded with user 0
     and a ``valid`` weight of 0. The epoch's loss is the mean over batches
-    weighted by their real users."""
+    weighted by their real users. In data mode the batch's noise is drawn
+    whole on every rank (``MultiVAE.draw_noise``) and a slice's terms are
+    normalized by the whole batch's real users."""
 
     def __init__(self, trainer_config, dataset, model):
         super().__init__(trainer_config, dataset, model)
@@ -478,12 +516,26 @@ class MLTrainer(BasicTrainer):
     def kl_weight(self) -> float:
         return min(self.kl_reg, 1.0 * self.epoch / max(self.n_epochs, 1))
 
-    def loss(self, users, valid):
-        """The loss of a batch of ``batches``: its users and valid weights."""
-        scores, kl, l2 = self.model.ml_forward(self.params, users, training=True, generator=self.host_generator)
-        ml = multinomial_ll_loss(scores, self.model.profiles(users, normalized=False), valid)
-        kl_loss = (kl * valid).sum() / torch.clamp(valid.sum(), min=1.0)
-        return ml + self.kl_weight() * kl_loss + self.l2_reg * l2.mean()
+    def batch_loss(self, params, users, valid, negatives=None, keep=None, eps=None, n_valid=None, share=1.0):
+        """The loss of a batch of ``batches``: its users and valid weights;
+        a data-mode slice passes its rows of the whole batch's noise, the
+        whole batch's real users ``n_valid`` and its ``share`` of the batch."""
+        noise = {k: t for k, t in (("keep", keep), ("eps", eps)) if t is not None}
+        scores, kl, l2 = self.model.ml_forward(params, users, training=True, generator=self.host_generator, **noise)
+        n_valid = valid.sum() if n_valid is None else n_valid
+        ml = multinomial_ll_loss(scores, self.model.profiles(users, normalized=False), valid, n_valid)
+        kl_loss = (kl * valid).sum() / torch.clamp(n_valid, min=1.0)
+        return ml + self.kl_weight() * kl_loss + share * self.l2_reg * l2.mean()
+
+    def _prepare_batch(self, users, valid):
+        return (users, valid, *self.model.draw_noise(len(users), self.host_generator))
+
+    def _local_loss(self):
+        def local_loss(full, sl, users, valid, keep, eps):
+            return self.batch_loss(full, users[sl], valid[sl], keep=None if keep is None else keep[sl], eps=eps[sl],
+                                   n_valid=valid.sum(), share=(sl.stop - sl.start) / self.batch_size)
+
+        return local_loss
 
     def train_one_epoch(self):
         losses, weights = [], []
@@ -507,11 +559,6 @@ class IGCNTrainer(BasicTrainer):
         self.aux_reg = trainer_config["aux_reg"]
         self.initialize_optimizer()
         self._build_samplers(dataset)
-        if self.mesh is not None and self._data_mesh:
-            self._mesh_step = make_sharded_igcn_step(
-                model, self.optimizer, self.params, self.batch_size, self.l2_reg, self.aux_reg, self.mesh,
-                self.host_generator,
-            )
 
     def _build_samplers(self, dataset):
         self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
@@ -525,15 +572,9 @@ class IGCNTrainer(BasicTrainer):
         a_users, a_pos, a_neg = sample_bpr_batch(self.aux_sampler, self.generator, self.batch_size)
         return users, pos, neg[:, 0], a_users, a_pos, a_neg[:, 0]
 
-    def step(self, *batch):
-        if self.mesh is None:
-            return super().step(*batch)
-        return self._mesh_step(*(batch or self.sample()))
-
-    def loss(self):
-        users, pos, neg, a_users, a_pos, a_neg = self.sample()
-        out = self.model.bpr_forward(self.params, users, pos, neg, training=True, generator=self.host_generator)
-        aux = aux_bpr_w(self.params["embedding"], self.params["w"], a_users, a_pos, a_neg, self.model.user_dim)
+    def batch_loss(self, params, users, pos, neg, a_users, a_pos, a_neg, negatives=None):
+        out = self.model.bpr_forward(params, users, pos, neg, training=True, generator=self.host_generator)
+        aux = aux_bpr_w(params["embedding"], params["w"], a_users, a_pos, a_neg, self.model.user_dim)
         return self._objective(out, aux)
 
     def _objective(self, out, aux):
@@ -550,18 +591,25 @@ class DOSEaugTrainer(IGCNTrainer):
     """IGCN's loss + ``contrastive_reg`` times the mean of the model's
     contrastive term (trainer.py:255-306); the epoch ends with the anneal and
     then the views' regeneration from the current params, in that order
-    (trainer.py:298-299)."""
+    (trainer.py:298-299). The InfoNCE takes its negatives from the batch's
+    view rows, as ``SGLTrainer``'s."""
 
     def __init__(self, trainer_config, dataset, model):
         super().__init__(trainer_config, dataset, model)
         self.contrastive_reg = trainer_config["contrastive_reg"]
+
+    def batch_loss(self, params, users, pos, neg, a_users, a_pos, a_neg, negatives=None):
+        out = self.model.bpr_forward(params, users, pos, neg, training=True, generator=self.host_generator,
+                                     negatives=negatives)
+        aux = aux_bpr_w(params["embedding"], params["w"], a_users, a_pos, a_neg, self.model.user_dim)
+        return self._objective(out, aux)
 
     def _objective(self, out, aux):
         return super()._objective(out, aux) + self.contrastive_reg * out[4].mean()
 
     def train_one_epoch(self):
         loss = super().train_one_epoch()
-        self.model.update_aug_adj(self.params)
+        self.model.update_aug_adj(self._model_params())
         return loss
 
 
@@ -589,7 +637,7 @@ def get_trainer(trainer_config, dataset, model, mesh=None, mesh_mode="data"):
 
     ``mesh``: a ('data', 'model') ``DeviceMesh`` (``parallel.make_mesh``) over
     the ranks of a torchrun launch. ``mesh_mode="data"``: the named trainer
-    trains data-parallel with row-sharded tables (BPRTrainer, IGCNTrainer).
+    trains data-parallel with row-sharded tables.
     ``mesh_mode="edge"``: ``EdgeShardedTrainer``, the graph, the table and
     its Adam moments sharded over 'model'; the named trainer's config gives
     the loss's regularizers."""

@@ -175,8 +175,8 @@ def test_forward_and_grad_match_jax(runs, inputs, S, mode):
         for r in ranks[1:]:
             np.testing.assert_array_equal(r[f"{mode}_fwd"], ranks[0][f"{mode}_fwd"])
     # one reduce-scatter (or all-reduce) forward; an all-gather backward in scatter mode only
-    want = {"scatter": {"reduce_scatter": 1, "all_gather": 1, "all_reduce": 0},
-            "replicated": {"reduce_scatter": 0, "all_gather": 0, "all_reduce": 1}}[mode]
+    want = {"scatter": {"reduce_scatter": 1, "all_gather": 1, "all_reduce": 0, "all_reduce_max": 0},
+            "replicated": {"reduce_scatter": 0, "all_gather": 0, "all_reduce": 1, "all_reduce_max": 0}}[mode]
     assert all(r[f"{mode}_collectives"] == want for r in ranks)
 
 

@@ -2,7 +2,8 @@
 package's: edge-mode LightGCN (BPR) and IGCN at S = 2 and 4 and on the
 hybrid (2, 2) mesh against ``make_edge_sharded_bpr_step`` /
 ``make_edge_sharded_igcn_step`` under ``shard_map`` (conftest's 8 virtual
-CPU devices), and data mode on (2, 2) against the port's single-device loss.
+CPU devices), and data mode on (2, 2) (``get_trainer(..., mesh=)``, the
+path training runs) against the port's single-device trainer.
 
 JAX draws its batches inside its steps; they are drawn here the same way
 (the step counter folded into the base seed, ``sample_bpr_batch`` on the
@@ -82,18 +83,11 @@ def steps_ranks(inputs):
     import torch
     import torch.distributed as dist
 
-    from inductive_recommendation_tpu_torch import get_model
+    from inductive_recommendation_tpu_torch import get_model, get_trainer
     from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset
-    from inductive_recommendation_tpu_torch.models import params_from_jax
-    from inductive_recommendation_tpu_torch.parallel import build_edge_sharded_spmm, make_mesh, shard_params
+    from inductive_recommendation_tpu_torch.parallel import build_edge_sharded_spmm, make_mesh
     from inductive_recommendation_tpu_torch.parallel.mesh import axis_size, gather_rows
-    from inductive_recommendation_tpu_torch.parallel.step import (
-        make_edge_sharded_bpr_step,
-        make_edge_sharded_igcn_step,
-        make_sharded_bpr_step,
-        make_sharded_igcn_step,
-    )
-    from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bpr_loss
+    from inductive_recommendation_tpu_torch.parallel.step import make_edge_sharded_bpr_step, make_edge_sharded_igcn_step
 
     world = dist.get_world_size()
     n = N_USERS + N_ITEMS
@@ -129,40 +123,19 @@ def steps_ranks(inputs):
             table = gather_rows(params["embedding"], mesh).numpy()
             out[("edge", shape, family)] = (losses, table, params.get("w", torch.zeros(0)).detach().numpy())
 
-    if world == 4:  # data mode on (2, 2) against the single-device loss of the same batches and masks
+    if world == 4:  # data mode on (2, 2) against the single-device trainer of the same batches and masks
         mesh = make_mesh(2, 2)
         ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=4)
-        for family, name in (("bpr", "LightGCN"), ("igcn", "IGCN")):
+        for family, name, trainer in (("bpr", "LightGCN", "BPRTrainer"), ("igcn", "IGCN", "IGCNTrainer")):
             cfg = {"name": name, "embedding_size": D, "n_layers": N_LAYERS, "dropout": 0.3, "feature_ratio": 1.0}
-            model = get_model(cfg, ds, device="cpu")
-            emb, w = inputs["init"][(family, 1)]
-            init = {"embedding": emb[: model.embedding.shape[0]]} | ({"w": w} if family == "igcn" else {})
+            tcfg = {"name": trainer, "optimizer": "Adam", "lr": LR, "l2_reg": L2, "aux_reg": AUX, "batch_size": BATCH,
+                    "test_batch_size": BATCH, "topks": [20], "n_epochs": 1, "seed": 7}
             runs = {}
-            for mode in ("single", "data"):
-                params = dict(params_from_jax(model, init))
-                gen = torch.Generator().manual_seed(7)
-                if mode == "data":
-                    params = shard_params(params, mesh)
-                opt = torch.optim.Adam(params.values(), lr=LR)
-                if mode == "data" and family == "bpr":
-                    step = make_sharded_bpr_step(model, opt, params, BATCH, L2, mesh, gen)
-                elif mode == "data":
-                    step = make_sharded_igcn_step(model, opt, params, BATCH, L2, AUX, mesh, gen)
-                else:
-                    def step(*b, params=params, opt=opt, gen=gen, family=family):
-                        u_r, p_r, n_r, l2 = model.bpr_forward(params, *b[:3], training=True, generator=gen)
-                        loss = bpr_loss(u_r, p_r, n_r) + L2 * l2.mean()
-                        if family == "igcn":
-                            loss = loss + AUX * aux_bpr_w(params["embedding"], params["w"], *b[3:], model.user_dim)
-                        opt.zero_grad()
-                        loss.backward()
-                        opt.step()
-                        return loss.detach()
-                losses = [float(step(*tensors(b))) for b in inputs["batches"][family]]
-                table = params["embedding"].detach().clone()  # single mode trains the model's own tensor
-                if mode == "data":
-                    table = gather_rows(table, mesh)[: model.embedding.shape[0]]
-                runs[mode] = (losses, table.numpy())
+            for mode, mesh_arg in (("single", None), ("data", mesh)):
+                # each trainer re-initialises the model's weights from its seed
+                t = get_trainer(tcfg, ds, get_model(cfg, ds, device="cpu"), mesh=mesh_arg)
+                losses = [float(t.step(*tensors(b))) for b in inputs["batches"][family]]
+                runs[mode] = (losses, t._model_params()["embedding"].detach().numpy())
             out[("data", family)] = runs
     return out
 
@@ -264,8 +237,9 @@ def test_edge_step_matches_jax(runs, jax_runs, world, shape, family):
 
 @pytest.mark.parametrize("family", ["bpr", "igcn"])
 def test_data_mode_matches_single_device(runs, family):
-    """Data mode on (2, 2): each rank a quarter of the batch, the tables
-    row-sharded over 'model'; IGCN under feature dropout 0.3."""
+    """Data mode on (2, 2) through the trainers: each rank a quarter of the
+    batch, the tables row-sharded over 'model'; both families under
+    dropout 0.3."""
     for r in runs[4]:
         single, data = r[("data", family)]["single"], r[("data", family)]["data"]
         _close(data[0], single[0])

@@ -4,8 +4,8 @@ against the port's single-device trainers of the same seed (the same init,
 batches and dropout masks: epoch losses within 1e-5, metrics within 1e-6);
 a best checkpoint saved under the mesh and loaded by a single-device
 trainer; ``save_state`` / ``load_state`` re-sharding the Adam moments;
-``attach_dataset`` + ``inductive_eval``; the families that wait for the next
-slice; and the command line under ``torch.distributed.run`` against its
+``attach_dataset`` + ``inductive_eval``; the families edge mode refuses;
+and the command line under ``torch.distributed.run`` against its
 single-process line (within 1e-5).
 
 One module-scoped launch of 2 ranks (``parallel.launch.run_ranks``) runs
@@ -243,26 +243,17 @@ class _FakeMesh:
         return 2
 
 
-@pytest.mark.parametrize("name", ["DOSE_aug", "SGL", "NGCF", "IMCGAE", "AttIGCN", "MF"])
+@pytest.mark.parametrize("name", ["MF", "NeuMF", "MultiVAE", "ItemKNN", "Popularity"])
 def test_edge_mode_refuses_other_families(name):
+    """The models with no O(|E|) propagation to shard refuse edge mode and
+    point at data mode."""
     from inductive_recommendation_tpu_torch import get_model, get_trainer
 
     ds = _dataset()
-    cfg = dict(IGCN, name=name, aug_num=50, aug_rate=0.8, n_heads=2, dropout=0.1, layer_sizes=[16, 16])
+    cfg = dict(IGCN, name=name, dropout=0.1, layer_sizes=[16, 16], k=10)
     model = get_model(cfg, ds, device="cpu")
-    with pytest.raises(ValueError, match="next slice" if name != "MF" else "mesh_mode='data'"):
+    with pytest.raises(ValueError, match="mesh_mode='data'"):
         get_trainer(dict(TRAINER, name="BPRTrainer"), ds, model, mesh=_FakeMesh(), mesh_mode="edge")
-
-
-@pytest.mark.parametrize("tname", ["SGLTrainer", "DOSEaugTrainer", "MLTrainer"])
-def test_data_mode_refuses_other_trainers(tname):
-    from inductive_recommendation_tpu_torch import get_model, get_trainer
-
-    ds = _dataset()
-    model = get_model(IGCN, ds, device="cpu")
-    cfg = dict(TRAINER, name=tname, contrastive_reg=0.1, kl_reg=0.2)
-    with pytest.raises(ValueError, match="next slice"):
-        get_trainer(cfg, ds, model, mesh=_FakeMesh(), mesh_mode="data")
 
 
 def _write_raw(path, seed=0, n_users=200, n_items=120, n_events=5000):
