@@ -2,6 +2,7 @@
 """The port's multi-GPU layer across cards, one process a card over NCCL:
 
     torchrun --standalone --nproc_per_node 4 chip_mesh.py     # on a machine with 4 cards
+    torchrun --standalone --nproc_per_node 4 chip_mesh.py --models AttIGCN   # one model's runs
 
 ``chip_smoke.py`` runs the layer at world 1 (one card); this script runs what
 exists only across cards. On the Gowalla-scale synthetic set of
@@ -18,7 +19,7 @@ every rank:
    (1, W)): trains the port's trainer ``STEPS`` steps from the same seed,
    holds every loss to the reference's within 1e-5 (the same batches,
    dropout masks and views), counts one step's SpMM launches by route and
-   collectives by kind, times the step (the median of ``TIMED`` steps, each
+   collectives by kind (with AttIGCN's attention kernel launches), times the step (the median of ``TIMED`` steps, each
    ended by a synchronise on every rank) and its peak device memory, and
    holds its mesh evaluator's test metrics to a single-device evaluator's on
    the gathered weights within 1e-6;
@@ -32,6 +33,7 @@ the numbers last.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -46,7 +48,7 @@ from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset
 from inductive_recommendation_tpu_torch.eval import Evaluator
 from inductive_recommendation_tpu_torch.graph import sym_normalized_adjacency
 from inductive_recommendation_tpu_torch.models import params_from_jax
-from inductive_recommendation_tpu_torch.ops import spmm_csr_cuda
+from inductive_recommendation_tpu_torch.ops import attention_csr, spmm_csr_cuda
 from inductive_recommendation_tpu_torch.ops.csr_spmm import reset_launch_counts
 from inductive_recommendation_tpu_torch.parallel import (
     build_edge_sharded_spmm,
@@ -131,10 +133,11 @@ def run_mesh(ds, model_cfg, trainer_cfg, mode, shape, ref_losses, single_ms, dev
     if not (diff <= 1e-5 * np.maximum(1.0, np.abs(ref_losses))).all():
         raise AssertionError(f"{name} {mode} {shape}: losses {losses} against the single-device {ref_losses}")
     reset_launch_counts()
+    attention_csr.reset_launch_counts()
     reset_collective_counts()
     trainer.step()
     torch.cuda.synchronize()
-    launches = {k: v for k, v in spmm_csr_cuda.route_launches.items() if v}
+    launches = {k: v for k, v in {**spmm_csr_cuda.route_launches, **attention_csr.route_launches}.items() if v}
     kinds = dict(counts.by_kind)
     torch.cuda.reset_peak_memory_stats()
     ms = step_ms(trainer.step)
@@ -180,6 +183,10 @@ def shard_times(ds, world, rank, dev) -> dict:
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--models", nargs="+", default=[m["name"] for m, _, _ in MODELS],
+                        choices=[m["name"] for m, _, _ in MODELS], help="the models to run (default: all)")
+    args = parser.parse_args()
     dev = init_distributed()
     rank, world = dist.get_rank(), dist.get_world_size()
     if rank == 0:
@@ -193,6 +200,8 @@ def main():
     runs, single_ms = [], {}
     for model_cfg, trainer_cfg, meshes in MODELS:
         name = model_cfg["name"]
+        if name not in args.models:
+            continue
         single = get_trainer(trainer_cfg, ds, get_model(model_cfg, ds))
         ref = np.array([float(single.step()) for _ in range(STEPS)])
         single_ms[name] = step_ms(single.step)

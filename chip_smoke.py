@@ -84,10 +84,24 @@ Phases, each of which raises on failure (the exit code is then not 0):
    step, epoch s, ``evaluate`` ms and users/s;
 10. the last four models on the same set, one epoch each, with the checks,
    counts and times of phase 9 (b) (``STEP_LAUNCHES``). (a) AttIGCN at
-   IGCN's grid width (4 heads) with the IGCN row's trainer: the product with
-   the model's attention as edge values and its transpose against float64,
-   d(values) within 1e-5 of max |float64|, ``get_rep`` against the float64
-   plain chain, the step's peak device memory. (b) SGL and HALF at
+   IGCN's grid width (4 heads) with the IGCN row's trainer: the attention
+   kernels of ``ops/csrc/attention_csr.cu`` on small edge cases (runs of
+   empty rows, rows past the softmax's block threshold, 1-8 heads, the
+   16-byte and the scalar widths) and on its feature matrix, each
+   against its float64 plain version and bitwise repeatable, timed beside
+   the plain version and the library call (``sddmm_csr`` with 4 heads, the
+   scores, entry by entry within ``check_sddmm``'s rounding bound, beside
+   the [nnz, h, dv] gathers it replaced; with one head, d(values), beside
+   ``torch.sparse.sampled_addmm``; ``segment_softmax_csr`` within 1e-5 *
+   max(1, max |float64|) beside ``segment_softmax``; its backward within
+   1e-5 of max |float64| beside autograd's), a query-gradient product, the
+   product with the model's attention as edge values and its transpose
+   against float64, d(values) within 1e-5 of max |float64|, ``get_rep``
+   against the float64 plain chain; the attention's device time alone with
+   the kernels and with the plain torch ops; the epoch, then the same epoch
+   on the same batches with the plain torch-ops attention (losses within
+   1e-5, step times, one profiled step, peak memory of a step for both).
+   (b) SGL and HALF at
    LightGCN's grid width (aug_rate 0.8): each view keeps exactly
    int(0.8 * n_pairs) pairs and is symmetric, the views change at the epoch
    end, and a reload's views equal the saved ones bit for bit. (c)
@@ -224,8 +238,13 @@ from inductive_recommendation_tpu_torch.ops import (
     spmm_csr_reference,
     spmm_csr_values,
 )
-from inductive_recommendation_tpu_torch.ops.attention_spmm import fused_kv_attention
-from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values, reset_launch_counts
+from inductive_recommendation_tpu_torch.models import att_igcn
+from inductive_recommendation_tpu_torch.models.base import linear
+from inductive_recommendation_tpu_torch.ops import attention_csr
+from inductive_recommendation_tpu_torch.ops.attention_spmm import folded_query, fused_kv_attention_reference
+from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values
+from inductive_recommendation_tpu_torch.ops.csr_spmm import reset_launch_counts as reset_spmm_counts
+from inductive_recommendation_tpu_torch.ops.spmm import segment_softmax
 from inductive_recommendation_tpu_torch.parallel import (
     build_edge_sharded_spmm,
     init_distributed,
@@ -283,8 +302,12 @@ STEP_LAUNCHES = {
     "NGCF": {"forward_dropout": 6, "transpose_dropout": 6},
     "IMCGAE": {"forward": 12},
     "IDCF_LGCN": {"forward": 14},
-    # the query's feat product and the adjacency's 3 + 3; the aggregation and its backward
-    "AttIGCN": {"forward": 14, "attention": 2, "attention_transpose": 2},
+    # the query's feat product and the adjacency's 3 + 3; the aggregation and
+    # its backward; the query's gradient, one product a head; the attention
+    # kernels: the scores, the softmax and its backward, d(values)
+    "AttIGCN": {"forward": 14, "attention": 2, "attention_transpose": 2, "attention_dq": 8,
+                "sddmm_csr/attention": 1, "sddmm_csr/attention_d_values": 1, "segment_softmax_csr/attention": 1,
+                "segment_softmax_csr_backward/attention": 1},
     "SGL": {"forward": 12, "view": 24},
     "HALF": {"forward": 12, "view": 12},
     # DOSE_aug's 32, the view's feature products on the augmented matrix
@@ -331,12 +354,32 @@ FP32_FLOPS = 67e12
 # mul.hi, 2 mul.lo, 4 xor and 2 key adds), counted at the fp32 rate: the
 # published table has no int32 rate, so this term is a lower bound
 PHILOX_OPS_PER_EDGE = 100
+# operations of one (edge, head) entry of the row softmax (a compare, two
+# subtractions, divisions and exponentials, an add, the division by the sum
+# and the head mean's add), each counted as one at the fp32 rate; its
+# backward's (two multiply-adds, a subtraction, a division) likewise
+SOFTMAX_OPS_PER_ENTRY = 10
+SOFTMAX_BACKWARD_OPS_PER_ENTRY = 5
 REL_TOL = 1e-5
+# the port's own kernels, by the names the profiler gives them
+OWN_KERNELS = ("spmm", "sddmm", "softmax_rows")
 U_FP32 = 2.0**-24  # fp32's unit roundoff
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def reset_launch_counts():
+    """Every kernel's launch counts to 0: the SpMM's and the attention kernels'."""
+    reset_spmm_counts()
+    attention_csr.reset_launch_counts()
+
+
+def launches_by_route() -> dict:
+    """The launches since the last reset, by route: the SpMM's
+    (``route_key``) and the attention kernels' (``"<kernel>/<route>"``)."""
+    return {**spmm_csr_cuda.route_launches, **attention_csr.route_launches}
 
 
 def nvidia_smi_name_power() -> str:
@@ -442,7 +485,7 @@ def device_breakdown(fn, top=8):
         run_end = max(run_end, end)
     busy = (busy + run_end - run_start) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    ranked = ranked[:top] + [kv for kv in ranked[top:] if "spmm" in kv[0]]
+    ranked = ranked[:top] + [kv for kv in ranked[top:] if any(k in kv[0] for k in OWN_KERNELS)]
     return host, busy, [(name, ms, n) for name, (ms, n) in ranked], len(spans)
 
 
@@ -597,11 +640,13 @@ def check_kernel_edge_cases(rng) -> float:
     return worst
 
 
-def kernel_device_ms(fn, calls=20) -> dict[str, float] | None:
-    """Device time per call of ``fn`` by kernel (``spmm_chunk_kernel``,
-    ``spmm_carry_kernel``), from ``torch.profiler`` over ``calls`` calls after
-    one warm-up: what the card spent in each, whatever the host's pace. None
-    when the profiler saw no device activity."""
+def kernel_device_ms(fn, calls=20, kernels=("spmm_chunk_kernel", "spmm_carry_kernel")) -> dict[str, float] | None:
+    """Device time of one launch of each kernel of ``fn`` (default
+    ``spmm_chunk_kernel``, ``spmm_carry_kernel``; each launched once a
+    call), from ``torch.profiler`` over ``calls`` calls after one warm-up:
+    what the card spent in each, whatever the host's pace. The mean over the
+    launches the profiler recorded, which may be fewer than ``calls`` (it
+    has dropped device events). None when it saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -612,15 +657,15 @@ def kernel_device_ms(fn, calls=20) -> dict[str, float] | None:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        by_kernel = {}
+        total, seen = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                for kernel in ("spmm_chunk_kernel", "spmm_carry_kernel"):
+                for kernel in kernels:
                     if kernel in e.name:
-                        ms = (e.time_range.end - e.time_range.start) / 1e3 / calls
-                        by_kernel[kernel] = by_kernel.get(kernel, 0.0) + ms
-        if by_kernel:
-            return by_kernel
+                        total[kernel] = total.get(kernel, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+                        seen[kernel] = seen.get(kernel, 0) + 1
+        if total:
+            return {k: total[k] / seen[k] for k in total}
     return None
 
 
@@ -1116,17 +1161,18 @@ def train_recorded(trainer, run):
     return by_epoch, epoch_s
 
 
-def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None) -> dict:
+def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None, keep_losses=False) -> dict:
     """Phases 9 (b) and 10 for one trainable model: ``run`` trains it
     (default: one epoch), ``evaluate`` follows; the launches of both by
     route, one step's launches by route against ``STEP_LAUNCHES``, the
-    step's times and one profiled step."""
+    step's times and one profiled step; with ``keep_losses``, every step's
+    loss by epoch under ``"step_losses"`` (not for the JSON line)."""
     model = trainer.model
     run = run or (lambda: trainer.train_one_epoch())
     reset_launch_counts()  # the model's run starts here
     by_epoch, epoch_s = train_recorded(trainer, run)
     metrics, eval_ms = evaluate_and_check(ds, ev, model, trainer.params, name)
-    run_launches = dict(spmm_csr_cuda.route_launches)  # and ends here
+    run_launches = launches_by_route()  # and ends here
     expected = STEP_LAUNCHES[name]
     if expected and min(run_launches[r] for r in expected) == 0:
         raise AssertionError(f"{name}: a route of the kernel was not launched in its run: {run_launches}")
@@ -1140,7 +1186,7 @@ def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None) -> d
     reset_launch_counts()
     step()
     torch.cuda.synchronize()
-    per_step = {k: v for k, v in spmm_csr_cuda.route_launches.items() if v}
+    per_step = {k: v for k, v in launches_by_route().items() if v}
     if per_step != expected:
         raise AssertionError(f"{name}: one step launched {per_step}, expected {expected}")
     step_ms = median_ms(step, reps=30)
@@ -1162,6 +1208,8 @@ def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None) -> d
         "route_launches_run": run_launches,
         "launches_per_step": per_step,
     }
+    if keep_losses:
+        out["step_losses"] = by_epoch
     breakdown = device_breakdown(step, top=6)
     busy = "not measured"
     if breakdown is not None:
@@ -1346,34 +1394,227 @@ def zoo_phase(ds, card, rng) -> dict:
 
 def plain_att_rep(model, params):
     """AttIGCN get_rep in float64: the query and the adjacency through the
-    plain SpMM, the attention through its torch ops, the aggregation through
-    the plain SpMM with the attention as values."""
+    plain SpMM, the attention through the plain versions of its kernels, the
+    aggregation through the plain SpMM with the attention as values."""
     p = {k: v.detach().double() for k, v in params.items()}
     emb = p["embedding"][: model.feat_n_cols]
     feat, att = model.feat, model.att_feat
     x_q = spmm_csr_reference(feat.row_ptr, feat.col, feat.val.double(), emb)
     q = (x_q @ p["weight_q.w"] + p["weight_q.b"]).reshape(-1, model.n_heads, model.embedding_size)
-    attn = fused_kv_attention(att, q, p["weight_k.w"], p["weight_k.b"], emb, model.temperature)
+    attn = fused_kv_attention_reference(att, q, p["weight_k.w"], p["weight_k.b"], emb, model.temperature)
     return plain_rep(model, params, spmm_csr_reference(att.row_ptr, att.col, attn, emb))
 
 
+def bound_ms(n_bytes, n_ops) -> tuple[float, str]:
+    """The least time for ``n_bytes`` moved at the HBM rate and ``n_ops``
+    fp32 operations at the peak rate, and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sddmm_bound_ms(mat, h, dv, bias) -> tuple[float, str]:
+    """K1: the CSR's row_ptr and col, a [n_rows, h, dv], x [n_cols, dv] and
+    b [n_rows, h] read once, out [nnz, h] written once; 2 h dv operations an
+    edge."""
+    n_bytes = 4 * (mat.n_rows + 1 + mat.nnz + mat.n_rows * h * dv + mat.n_cols * dv + mat.nnz * h
+                   + (mat.n_rows * h if bias else 0))
+    return bound_ms(n_bytes, 2.0 * h * dv * mat.nnz)
+
+
+def check_sddmm(what, mat, a, x, b, out) -> dict:
+    """Holds K1's ``out`` to its float64 plain version entry by entry:
+    |out - plain| <= gamma(dv + 8) (|a| . |x| + |b|), the worst case of a
+    sum whose every term passes through at most dv + 8 roundings (a lane's
+    chain of at most dv multiply-adds, 5 shuffle adds, the bias, 2 to
+    spare; ``check_product``'s bound for a dot product)."""
+    ref = attention_csr.sddmm_csr_reference(mat.row_ptr, mat.col, a.double(), x.double(),
+                                            None if b is None else b.double())
+    mag = attention_csr.sddmm_csr_reference(mat.row_ptr, mat.col, a.double().abs(), x.double().abs(),
+                                            None if b is None else b.double().abs())
+    h = x.shape[1] + 8
+    limit = h * U_FP32 / (1.0 - h * U_FP32) * mag
+    err = (out.double() - ref).abs()
+    ratio = err / limit
+    ratio[(err == 0) & (limit == 0)] = 0.0
+    if not bool((err <= limit).all()):
+        i = int(torch.argmax(torch.nan_to_num(ratio, nan=torch.inf)))
+        raise AssertionError(f"{what}: entry {divmod(i, out.shape[1])} err {err.flatten()[i].item()} > its limit "
+                             f"{limit.flatten()[i].item()}")
+    return {"max_abs_err": err.max().item(), "max_err_over_limit": ratio.max().item()}
+
+
+def measure_attention_kernel(name, kernel, plain, library, check, bound) -> dict:
+    """One attention kernel on the card: two launches bitwise equal, held to
+    its float64 plain version by ``check(out)``; its time, the plain
+    version's (fp32, same inputs) and the library call's (None where there is
+    none), each as the median of single calls and of windows of 10; the
+    bound; the device time of its kernel by name."""
+    out, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    same = (torch.equal(out, again) if isinstance(out, torch.Tensor)
+            else all(torch.equal(a, b) for a, b in zip(out, again)))
+    if not same:
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    row = {"kernel": name, **check(out)}
+    fns = {"ms": kernel, "plain_ms": plain, **({} if library is None else {"library_ms": library})}
+    for key, fn in fns.items():
+        row[key] = median_ms(fn)
+    for key, ms in zip(fns, windowed_ms(*fns.values())):
+        row[f"{key}_windowed"] = ms
+    if library is None:
+        row["library_ms"] = row["library_ms_windowed"] = None
+    row["bound_ms"], row["bound_by"] = bound
+    row["kernel_device_ms"] = kernel_device_ms(kernel, kernels=("sddmm", "softmax_rows"))
+    row["clocks_after"] = card_clocks()
+    log(f"{name}: max abs err {row['max_abs_err']:.3g} (bitwise repeatable); single calls: kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']}; windows of 10: kernel "
+        f"{row['ms_windowed']:.4f} ms, plain {row['plain_ms_windowed']:.4f} ms, library "
+        f"{row['library_ms_windowed']}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); device ms "
+        f"{row['kernel_device_ms']} (then SM, memory clocks and power {row['clocks_after']})")
+    return row
+
+
+def check_attention_edge_cases(rng) -> float:
+    """The attention kernels on small CSRs: a run of 3,000 empty rows, rows
+    past the softmax's block threshold (5,000 and 1,100 edges), one row;
+    h in {1, 2, 3, 4, 8}; widths of the 16-byte path (8, 16, 64, 128) and of
+    the scalar one (37, 200, and 64 with x off 16-byte alignment). Each
+    kernel against its float64 plain version (K1 within ``check_sddmm``'s
+    bound, K2 within 1e-5 * max(1, max |float64|), K3 within 1e-5 of max
+    |float64|), each twice bitwise equal."""
+    worst = 0.0
+    cases = [
+        ("empty runs and long rows", np.concatenate([np.zeros(3000, np.int64), rng.integers(0, 5, 500), [5000],
+                                                      np.zeros(100, np.int64), [1100], rng.integers(0, 40, 300),
+                                                      np.zeros(50, np.int64)]), 900),
+        ("one row", np.array([3]), 5),
+    ]
+    for name, degrees, n_cols in cases:
+        row = rows_of_degrees(degrees)
+        mat = build_csr_spmm(row, rng.integers(0, n_cols, len(row)), np.ones(len(row)), (len(degrees), n_cols),
+                             device="cuda")
+        rp, col = mat.row_ptr, mat.col
+        for h in (1, 2, 3, 4, 8):
+            for dv, aligned in ((8, True), (16, True), (64, True), (128, True), (37, True), (200, True), (64, False)):
+                a = torch.randn(mat.n_rows, h, dv, device="cuda")
+                x = torch.randn(n_cols, dv, device="cuda")
+                if not aligned:  # the same values 4 bytes past an aligned start
+                    x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
+                b = torch.randn(mat.n_rows, h, device="cuda")
+                out, again = (attention_csr.sddmm_csr_cuda(rp, col, a, x, b) for _ in range(2))
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{name}: sddmm_csr h {h} dv {dv}: two launches differ")
+                worst = max(worst, check_sddmm(f"{name} sddmm_csr h {h} dv {dv} aligned {aligned}", mat, a, x, b,
+                                               out)["max_abs_err"])
+            scores = torch.randn(mat.nnz, h, device="cuda") * 30.0
+            (p, attn), (p2, attn2) = (attention_csr.segment_softmax_csr_cuda(rp, scores, 80.0) for _ in range(2))
+            g = torch.randn(mat.nnz, device="cuda")
+            g_s, g_s2 = (attention_csr.segment_softmax_csr_backward_cuda(rp, p, g, 80.0) for _ in range(2))
+            torch.cuda.synchronize()
+            if not (torch.equal(p, p2) and torch.equal(attn, attn2) and torch.equal(g_s, g_s2)):
+                raise AssertionError(f"{name}: the softmax kernels, h {h}: two launches differ")
+            ref_p, ref_attn = attention_csr.segment_softmax_csr_reference(rp, scores.double(), 80.0)
+            worst = max(worst, close(p, ref_p, f"{name} segment_softmax_csr p, h {h}"),
+                        close(attn, ref_attn, f"{name} segment_softmax_csr attn, h {h}"))
+            ref = attention_csr.segment_softmax_csr_backward_reference(rp, ref_p, g.double(), 80.0)
+            err = (g_s.double() - ref).abs().max().item()
+            if not err <= REL_TOL * ref.abs().max().item():
+                raise AssertionError(f"{name} segment_softmax_csr_backward, h {h}: max abs err {err}")
+    log(f"attention kernel edge cases: ok, max abs err {worst:.3g}, two launches bitwise equal")
+    return worst
+
+
 def check_attention_kernels(model, params, rng) -> dict:
-    """Phase 10 (a): the product with the model's attention as edge values and
-    its transpose (the attention gathered into the transpose's edge order)
-    against float64; d(values) through the autograd Function against
-    float64, within 1e-5 of max |float64|; ``get_rep`` against the float64
-    plain chain."""
-    att, d = model.att_feat, model.embedding_size
+    """Phase 10 (a): the attention kernels on small edge cases
+    (:func:`check_attention_edge_cases`), then on the model's feature matrix
+    at its heads and width, each against its float64 plain version, bitwise
+    repeatable, timed beside the plain version and the library call: K1 with
+    4 heads (the scores: qk, qb and the table, ``check_sddmm``) and with one
+    (d(values): a cotangent and the table; library ``torch.sparse.
+    sampled_addmm``), K2 (p and attn within 1e-5 * max(1, max |float64|))
+    and K3 (within 1e-5 of max |float64|; library: autograd's backward
+    through ``segment_softmax``). Then the product with the attention as
+    edge values and its transpose against float64, a query-gradient product
+    (head 0's score cotangent as edge values on [table | 1 | 0 0 0]),
+    d(values) through the autograd Function against float64, and
+    ``get_rep`` against the float64 plain chain."""
+    att, d, h, temp = model.att_feat, model.embedding_size, model.n_heads, model.temperature
+    rp, col = att.row_ptr, att.col
     emb = params["embedding"][: model.feat_n_cols].detach()
     g = torch.as_tensor(rng.normal(0.0, 0.1, (att.n_rows, d)), dtype=torch.float32, device=emb.device)
+    rows = {"edge_cases_max_abs_err": check_attention_edge_cases(rng)}
     with torch.no_grad():
-        attn = model.attention(params)
-        rows = {
-            "attention": measure_spmm("attention", dataclasses.replace(att, val=attn), emb),
-            "attention_transpose": measure_spmm(
-                "attention^T", dataclasses.replace(att.T, val=attn[att.t_pos].contiguous()), g
-            ),
-        }
+        q = linear(params, "weight_q", spmm_csr_cuda(model.feat, emb)).reshape(-1, h, d)
+        qk, qb = (t.contiguous() for t in folded_query(q, params["weight_k.w"], params["weight_k.b"], d))
+        edge_rows, cols = att.edge_rows().long(), col.long()
+        rows["sddmm_scores"] = measure_attention_kernel(
+            f"sddmm_csr h {h} (the scores)",
+            lambda: attention_csr.sddmm_csr_cuda(rp, col, qk, emb, qb),
+            lambda: attention_csr.sddmm_csr_reference(rp, col, qk, emb, qb),
+            # the torch ops it replaces: the [nnz, h, dv] gather of qk and the row dots
+            lambda: torch.einsum("ehv,ev->eh", qk.index_select(0, att.edge_rows().long()), emb.index_select(0, cols))
+            + qb.index_select(0, edge_rows),
+            lambda out: check_sddmm("sddmm_csr scores", att, qk, emb, qb, out),
+            sddmm_bound_ms(att, h, d, True),
+        )
+        g3 = g[:, None, :]
+        ones = torch.sparse_csr_tensor(rp, col, torch.ones(att.nnz, device=emb.device), size=att.shape)
+        rows["sddmm_d_values"] = measure_attention_kernel(
+            "sddmm_csr h 1 (d(values))",
+            lambda: attention_csr.sddmm_csr_cuda(rp, col, g3, emb, route="attention_d_values"),
+            lambda: attention_csr.sddmm_csr_reference(rp, col, g3, emb),
+            lambda: torch.sparse.sampled_addmm(ones, g, emb.t(), beta=0.0),
+            lambda out: check_sddmm("sddmm_csr d(values)", att, g3, emb, None, out),
+            sddmm_bound_ms(att, 1, d, False),
+        )
+        lib = torch.sparse.sampled_addmm(ones, g, emb.t(), beta=0.0).values()
+        rows["sddmm_d_values"]["library_max_abs_err"] = (
+            lib.double() - attention_csr.sddmm_csr_reference(rp, col, g3.double(), emb.double())[:, 0]).abs().max().item()
+        scores = attention_csr.sddmm_csr_cuda(rp, col, qk, emb, qb)
+
+        def check_softmax(out):
+            ref_p, ref_attn = attention_csr.segment_softmax_csr_reference(rp, scores.double(), temp)
+            return {"max_abs_err": max(close(out[0], ref_p, "segment_softmax_csr p"),
+                                       close(out[1], ref_attn, "segment_softmax_csr attn"))}
+
+        rows["softmax"] = measure_attention_kernel(
+            f"segment_softmax_csr h {h}",
+            lambda: attention_csr.segment_softmax_csr_cuda(rp, scores, temp),
+            lambda: attention_csr.segment_softmax_csr_reference(rp, scores, temp),
+            lambda: segment_softmax(scores, rp, temp).mean(dim=-1),
+            check_softmax,
+            bound_ms(4 * (att.n_rows + 1 + 2 * att.nnz * h + att.nnz), SOFTMAX_OPS_PER_ENTRY * att.nnz * h),
+        )
+        p, attn = attention_csr.segment_softmax_csr_cuda(rp, scores, temp)
+        g_attn = attention_csr.sddmm_csr_cuda(rp, col, g3, emb)[:, 0].contiguous()
+
+        def check_backward(out):
+            ref = attention_csr.segment_softmax_csr_backward_reference(rp, p.double(), g_attn.double(), temp)
+            err, scale = (out.double() - ref).abs().max().item(), ref.abs().max().item()
+            if not err <= REL_TOL * scale:
+                raise AssertionError(f"segment_softmax_csr_backward: max abs err {err} > {REL_TOL} * {scale}")
+            return {"max_abs_err": err, "max_abs_plain": scale}
+
+    s_req = scores.clone().requires_grad_(True)
+    a_req = segment_softmax(s_req, rp, temp).mean(dim=-1)
+    with torch.no_grad():
+        rows["softmax_backward"] = measure_attention_kernel(
+            f"segment_softmax_csr_backward h {h}",
+            lambda: attention_csr.segment_softmax_csr_backward_cuda(rp, p, g_attn, temp),
+            lambda: attention_csr.segment_softmax_csr_backward_reference(rp, p, g_attn, temp),
+            lambda: torch.autograd.grad(a_req, s_req, g_attn, retain_graph=True)[0],
+            check_backward,
+            bound_ms(4 * (att.n_rows + 1 + 2 * att.nnz * h + att.nnz), SOFTMAX_BACKWARD_OPS_PER_ENTRY * att.nnz * h),
+        )
+        del s_req, a_req
+        g_s = attention_csr.segment_softmax_csr_backward_cuda(rp, p, g_attn, temp)
+        v1 = torch.cat([emb, emb.new_ones(emb.shape[0], 1), emb.new_zeros(emb.shape[0], 3)], dim=1).contiguous()
+        rows["attention_dq"] = measure_spmm(
+            "attention_dq (head 0)", dataclasses.replace(att, val=g_s[:, 0].contiguous(), route="attention_dq"), v1)
+        rows["attention"] = measure_spmm("attention", dataclasses.replace(att, val=attn), emb)
+        rows["attention_transpose"] = measure_spmm(
+            "attention^T", dataclasses.replace(att.T, val=attn[att.t_pos].contiguous()), g)
     values = attn.clone().requires_grad_(True)
     (spmm_csr_values(att, emb, values) * g).sum().backward()
     with torch.no_grad():
@@ -1388,18 +1629,55 @@ def check_attention_kernels(model, params, rng) -> dict:
         rows["rep_max_abs_err"] = close(rep, plain_att_rep(model, params), "AttIGCN get_rep vs the plain chain")
     if rep.shape != (model.n_users + model.n_items, d) or not torch.isfinite(rep).all():
         raise AssertionError(f"AttIGCN get_rep: shape {tuple(rep.shape)} or non-finite values")
-    log(f"AttIGCN: attention over {att.nnz} edges ({model.n_heads} heads, T {model.temperature}); d(values) max abs "
-        f"err {err:.3g} (max |float64| {scale:.3g}); get_rep vs the float64 plain chain {rows['rep_max_abs_err']:.3g}")
+    log(f"AttIGCN: attention over {att.nnz} edges ({h} heads, T {temp}, largest row "
+        f"{int(torch.diff(rp).max())}); d(values) max abs err {err:.3g} (max |float64| {scale:.3g}); get_rep vs the "
+        f"float64 plain chain {rows['rep_max_abs_err']:.3g}")
     return rows
 
 
-def step_peak_bytes(trainer) -> int:
-    """Peak device memory allocated over one training step."""
+@contextlib.contextmanager
+def plain_attention():
+    """AttIGCN's attention as the plain torch ops (autograd through the
+    kernels' plain versions) while the block runs: the yardstick of phase
+    10 (a)."""
+    real = att_igcn.fused_kv_attention
+    att_igcn.fused_kv_attention = fused_kv_attention_reference
+    try:
+        yield
+    finally:
+        att_igcn.fused_kv_attention = real
+
+
+def attention_device(model, params, rng) -> dict:
+    """Device busy ms of the attention alone (``AttIGCN.attention`` forward
+    and backward from a random cotangent), with the kernels and with the
+    plain torch ops, under ``torch.profiler``; None where not measured."""
+    gw = torch.as_tensor(rng.normal(0.0, 1e-3, model.att_feat.nnz), dtype=torch.float32, device=model.device)
+    ps = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+    def fwd_bwd():
+        torch.autograd.grad(model.attention(ps), [ps["weight_q.w"], ps["weight_k.w"], ps["weight_k.b"]], gw)
+
+    out = {}
+    for key, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_attention)):
+        with ctx():
+            fwd_bwd()
+            b = device_breakdown(fwd_bwd, top=12)
+        out[key] = None if b is None else {"host_ms": b[0], "device_busy_ms": b[1], "device_launches": b[3],
+                                           "kernels": b[2]}
+    return out
+
+
+def step_memory(trainer) -> tuple[int, int]:
+    """(peak device memory allocated over one training step, that peak less
+    the memory allocated when the step began: what the step itself adds)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     trainer.step()
     torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - before
 
 
 def check_sgl_views(model):
@@ -1453,13 +1731,36 @@ def last_models_phase(ds, card, rng) -> dict:
     rows, models = {}, {}
     ev = Evaluator(ds, topks=TOPKS, test_batch_size=TEST_BATCH)
 
-    # (a) AttIGCN
+    # (a) AttIGCN: the kernels, an epoch, then the same epoch on the same
+    # batches with the plain torch-ops attention
     t = get_trainer(dict(TRAINER_CONFIG, n_epochs=1), ds, get_model(ATT_CONFIG, ds))
     rows.update(check_attention_kernels(t.model, t.params, rng))
-    models["AttIGCN"] = zoo_model_run("AttIGCN", t, ds, ev, card, t.batch_size)
-    models["AttIGCN"]["step_peak_bytes"] = step_peak_bytes(t)
-    log(f"AttIGCN step peak device memory {models['AttIGCN']['step_peak_bytes'] / 2**30:.3f} GiB")
+    att_dev = attention_device(t.model, t.params, rng)
+    att = zoo_model_run("AttIGCN", t, ds, ev, card, t.batch_size, keep_losses=True)
+    losses = np.concatenate(att.pop("step_losses"))
+    att["step_peak_bytes"], att["step_added_bytes"] = step_memory(t)
     del t
+    with plain_attention():
+        t = get_trainer(dict(TRAINER_CONFIG, n_epochs=1), ds, get_model(ATT_CONFIG, ds))
+        plain_losses = np.concatenate(train_recorded(t, lambda: t.train_one_epoch())[0])
+        (plain_windowed,) = windowed_ms(t.step)
+        plain = {"step_ms": median_ms(t.step, reps=30), "step_ms_windowed": plain_windowed}
+        b = device_breakdown(t.step, top=12)
+        if b is not None:
+            plain["profiled_step"] = {"host_ms": b[0], "device_busy_ms": b[1], "device_launches": b[3], "kernels": b[2]}
+        plain["step_peak_bytes"], plain["step_added_bytes"] = step_memory(t)
+    del t
+    plain["loss_max_abs_diff"] = same_losses("AttIGCN with the kernels against the plain attention", losses,
+                                             plain_losses)
+    att.update(plain_attention=plain, attention_device=att_dev)
+    models["AttIGCN"] = att
+    busy = {k: (v or {}).get("device_busy_ms") for k, v in att_dev.items()}
+    log(f"AttIGCN on {card}: {len(losses)} losses within {plain['loss_max_abs_diff']:.3g} of the plain attention's; "
+        f"step {att['step_ms']:.3f} ms single / {att['step_ms_windowed']:.3f} windowed against the plain attention's "
+        f"{plain['step_ms']:.3f} / {plain['step_ms_windowed']:.3f}; step peak device memory "
+        f"{att['step_peak_bytes'] / 2**30:.3f} GiB against {plain['step_peak_bytes'] / 2**30:.3f} GiB, of which the "
+        f"step adds {att['step_added_bytes'] / 2**30:.3f} against {plain['step_added_bytes'] / 2**30:.3f}; the attention "
+        f"alone (forward + backward) device busy {busy['kernels']} ms against {busy['plain']} ms")
 
     # (b) SGL and HALF
     for name, trainer_name in (("SGL", "SGLTrainer"), ("HALF", "HALFTrainer")):
@@ -2153,8 +2454,8 @@ def counted_run(fn) -> tuple:
     reset_collective_counts()
     out = fn()
     torch.cuda.synchronize()
-    routes = {k: v for k, v in spmm_csr_cuda.route_launches.items() if v}
-    if not routes or any(not r.startswith("edge_shard") for r in routes):
+    routes = {k: v for k, v in launches_by_route().items() if v}
+    if not routes or any(not r.split("/")[-1].startswith("edge_shard") for r in routes):
         raise AssertionError(f"an edge-mode run launched {routes}")
     return out, routes, dict(collective_counts.by_kind)
 
@@ -2308,7 +2609,8 @@ def families_phase(ds, card, rng, mesh) -> tuple:
         del single, edge
     out["edge_launches_run"], out["edge_collectives_run"] = run_routes, run_kinds
     for route in ("edge_shard_view", "edge_shard_view_transpose", "edge_shard_aug_feat_dropout",
-                  "edge_shard_attention"):
+                  "edge_shard_attention", "edge_shard_attention_dq", "sddmm_csr/edge_shard_attention",
+                  "sddmm_csr/edge_shard_attention_d_values"):
         if not run_routes.get(route):
             raise AssertionError(f"phase 13's edge runs launched no {route}: {run_routes}")
 
@@ -2610,8 +2912,49 @@ def main():
               aug2_run["aug_feat_transpose"], lmodels["DOSE_aug2"]["launches_per_step"]["aug_feat_transpose"],
               "its backward on the transpose CSR under the same mask", [lrows["aug_feat_transpose_dropout"]]),
     ]
+    att_step = lmodels["AttIGCN"]["launches_per_step"]
+    last_entries.append(entry(
+        "spmm_csr_attention_dq", lrows["attention_dq"], att_run["attention_dq"], att_step["attention_dq"],
+        "the query's gradient, one product a head: the feature matrix's structure with head 0's score cotangent "
+        "as edge values @ [table | 1 | 0 0 0] (the ones column gives d(qb)); launches: AttIGCN's epoch",
+        [lrows["attention_dq"]]))
     last_entries[0].update(d_values_max_abs_err=lrows["d_values_max_abs_err"],
-                           step_peak_bytes=lmodels["AttIGCN"]["step_peak_bytes"])
+                           step_peak_bytes=lmodels["AttIGCN"]["step_peak_bytes"],
+                           step_added_bytes=lmodels["AttIGCN"]["step_added_bytes"],
+                           plain_attention_step_peak_bytes=lmodels["AttIGCN"]["plain_attention"]["step_peak_bytes"],
+                           plain_attention_step_added_bytes=lmodels["AttIGCN"]["plain_attention"]["step_added_bytes"])
+
+    def att_entry(name, row, key, per):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_windowed", "plain_ms_windowed",
+                "library_ms_windowed", "max_abs_err")
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "inductive_recommendation_tpu_torch/ops/csrc/attention_csr.cu",
+            "replaces": "inductive_recommendation_tpu/ops/attention_spmm.py:175",
+            "tpu_kernel": None,
+            "launches": att_run[key],
+            "launches_per_step": att_step[key],
+            **{k: row[k] for k in keys},
+            "per": per + "; no TPU kernel: the JAX package computes it with XLA ops (attention_spmm.py:16-34)",
+            "detail": [row],
+        }
+
+    att_entries = [
+        att_entry("sddmm_csr", lrows["sddmm_scores"], "sddmm_csr/attention",
+                  f"AttIGCN's scores, {ATT_CONFIG['n_heads']} heads: the folded query qk [n_rows, h, 64] read once a "
+                  "row against the gathered table rows, + qb; library_ms: the torch ops it replaced (an [nnz, h, "
+                  "64] gather of qk and row dots); launches: AttIGCN's epoch and evaluate"),
+        att_entry("sddmm_csr_d_values", lrows["sddmm_d_values"], "sddmm_csr/attention_d_values",
+                  "d(values) of the product with the attention as edge values: the cotangent's row . the table's "
+                  "row, one head; library_ms: torch.sparse.sampled_addmm on the CSR"),
+        att_entry("segment_softmax_csr", lrows["softmax"], "segment_softmax_csr/attention",
+                  "the per-row softmax of each head at T and the head mean; library_ms: the torch ops it replaced "
+                  "(scatter_reduce amax, exp, index_add)"),
+        att_entry("segment_softmax_csr_backward", lrows["softmax_backward"], "segment_softmax_csr_backward/attention",
+                  "the scores' cotangent from the attention's; library_ms: autograd's backward through the torch "
+                  "ops' softmax and head mean"),
+    ]
     view["detail"].append(lrows["sgl_view"])
 
     # 11. the front door: the raw file, the preprocessing and the grid's IGCN
@@ -2668,8 +3011,8 @@ def main():
               "attention as edge values (the row maxima and sums combined over the shards); launches: AttIGCN's "
               "edge-mode run", [frows["attention"]]),
     ]
-    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *shard_entries,
-                                  *family_entries]}))
+    print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *att_entries,
+                                  *shard_entries, *family_entries]}))
     print(
         json.dumps(
             {

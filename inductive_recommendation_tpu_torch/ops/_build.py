@@ -32,6 +32,11 @@ SIGNATURES = {
         ("spmm_csr_chunks", [_P, _P, _P, _P, _U64, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         ("spmm_csr_carries", [_P, _P, _P, _P, _I, _I, _I, _P]),
     ],
+    "attention_csr": [
+        ("sddmm_csr", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        ("segment_softmax_csr", [_P, _P, _I, _P, _P, _P, _I, _I, _F, _P]),
+        ("segment_softmax_csr_backward", [_P, _P, _I, _P, _P, _P, _I, _I, _F, _P]),
+    ],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

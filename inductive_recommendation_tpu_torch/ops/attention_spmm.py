@@ -11,41 +11,61 @@ attention-weighted sum of the value rows:
     attn[e]      = mean_h softmax_row(scores[:, h] / T)[e]
     out[r]       = sum over r's edges e of attn[e] * v[c_e]
 
-The scores and the softmax are torch ops over the edges (a gather, a row
-dot, ``ops.spmm.segment_softmax``); the aggregation is the hand-written
-SpMM with the attention as its edge values (``ops.csr_spmm.spmm_csr_values``
-on a ``values_layout``), whose backward runs the same kernel on the
-transpose layout for d(v) and a gather plus row dot for d(attn). The
-structure's own values are a mask only: the aggregation sums attn * v, not
-val * attn * v (JAX ``attention_spmm.py:196-212``).
+:func:`attention_spmm_fused_kv` folds the key map into the query (JAX
+``_attention_forward_qk``): the scores are the SDDMM kernel over the folded
+query ``qk`` [n_rows, h, dv], read once a row, and the gathered [dv]-wide
+value rows; the softmax and its head mean are the row-softmax kernel and
+its backward (``ops/attention_csr.py``, ``csrc/attention_csr.cu``); the
+query's gradient is the SpMM kernel, one product a head. The aggregation is
+the SpMM with the attention as its edge values (``ops.csr_spmm.
+spmm_csr_values`` on a ``values_layout``), whose backward runs the same
+kernel on the transpose layout for d(v) and the SDDMM kernel for d(attn).
+The structure's own values are a mask only: the aggregation sums attn * v,
+not val * attn * v (JAX ``attention_spmm.py:196-212``).
+:func:`fused_kv_attention_reference` is the same attention as plain torch
+ops (any dtype, any device, autograd through the ops). :func:`attention_spmm`,
+with an explicit key table, stays torch ops: no model of the port calls it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from inductive_recommendation_tpu_torch.ops.attention_csr import (
+    attention_scores,
+    segment_softmax_csr_reference,
+    sddmm_csr_reference,
+    softmax_head_mean,
+)
 from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, spmm_csr_values
 from inductive_recommendation_tpu_torch.ops.spmm import segment_softmax
 
 
-def _head_mean_attention(mat: CsrSpMM, scores: torch.Tensor, temperature: float) -> torch.Tensor:
-    """fp32 [nnz]: the per-row softmax of ``scores`` [nnz, h] at
-    ``temperature``, averaged over the heads (model.py:4275)."""
-    return segment_softmax(scores, mat.row_ptr, temperature).mean(dim=-1)
+def folded_query(q, w_k, b_k, dv: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(qk [n_rows, h, dv], qb [n_rows, h]): the query ``q`` [n_rows, h, dh]
+    folded with the key map ``w_k`` [dv, h * dh], ``b_k`` [h * dh]."""
+    h, dh = q.shape[1], q.shape[2]
+    qk = torch.einsum("nhd,vhd->nhv", q, w_k.reshape(dv, h, dh))
+    qb = torch.einsum("nhd,hd->nh", q, b_k.reshape(h, dh))
+    return qk, qb
 
 
 def fused_kv_attention(mat: CsrSpMM, q, w_k, b_k, v, temperature: float) -> torch.Tensor:
-    """[nnz]: the attention of :func:`attention_spmm_fused_kv` on ``mat``'s
-    edges, in the inputs' dtype (torch ops only: any floating dtype on any
-    device)."""
-    h, dh = q.shape[1], q.shape[2]
-    dv = v.shape[-1]
-    qk = torch.einsum("nhd,vhd->nhv", q, w_k.reshape(dv, h, dh))
-    qb = torch.einsum("nhd,hd->nh", q, b_k.reshape(h, dh))
-    rows, cols = mat.edge_rows().long(), mat.col.long()
-    values_sg = v.detach().index_select(0, cols)  # [nnz, dv]
-    scores = torch.einsum("ehv,ev->eh", qk.index_select(0, rows), values_sg) + qb.index_select(0, rows)
-    return _head_mean_attention(mat, scores, temperature)
+    """fp32 [nnz]: the attention of :func:`attention_spmm_fused_kv` on
+    ``mat``'s edges: the folded query's scores (the SDDMM kernel), their row
+    softmax and head mean (the row-softmax kernel); on CPU tensors the
+    kernels' plain versions."""
+    qk, qb = folded_query(q, w_k, b_k, v.shape[-1])
+    return softmax_head_mean(mat, attention_scores(mat, qk, qb, v), temperature)
+
+
+def fused_kv_attention_reference(mat: CsrSpMM, q, w_k, b_k, v, temperature: float) -> torch.Tensor:
+    """:func:`fused_kv_attention` as plain torch ops (the kernels' plain
+    versions, differentiable by autograd), in the inputs' dtype on any
+    device."""
+    qk, qb = folded_query(q, w_k, b_k, v.shape[-1])
+    scores = sddmm_csr_reference(mat.row_ptr, mat.col, qk, v.detach(), qb)
+    return segment_softmax_csr_reference(mat.row_ptr, scores, temperature)[1]
 
 
 def attention_spmm_fused_kv(mat: CsrSpMM, q, w_k, b_k, v, temperature: float) -> torch.Tensor:
@@ -55,7 +75,7 @@ def attention_spmm_fused_kv(mat: CsrSpMM, q, w_k, b_k, v, temperature: float) ->
     The keys are a linear map of the detached values, so Wk folds into the
     query side: ``qk = einsum(q, Wk)`` [n_rows, h, dv], ``qb = q . bk``
     [n_rows, h], and a score is ``qk[r_e] . sg(v[c_e]) + qb[r_e]``: the
-    edges gather [dv]-wide value rows, not [h * dh]-wide key rows, and
+    kernel reads a row's ``qk`` once and gathers [dv]-wide value rows, and
     d(Wk) flows through the dense einsum. ``q`` [n_rows, h, dh]; ``w_k``
     [dv, h * dh]; ``b_k`` [h * dh]; ``v`` [n_cols, dv]. The gradient in
     ``v`` flows through the aggregation only."""
@@ -71,4 +91,4 @@ def attention_spmm(mat: CsrSpMM, q, k_table, v, temperature: float) -> torch.Ten
     rows, cols = mat.edge_rows().long(), mat.col.long()
     keys = k_table.index_select(0, cols).reshape(-1, h, dh)
     scores = torch.einsum("ehd,ehd->eh", q.index_select(0, rows), keys)
-    return spmm_csr_values(mat, v, _head_mean_attention(mat, scores, temperature))
+    return spmm_csr_values(mat, v, segment_softmax(scores, mat.row_ptr, temperature).mean(dim=-1))

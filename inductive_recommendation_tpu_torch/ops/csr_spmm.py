@@ -325,6 +325,7 @@ ROUTES = (
     "edge_shard_aug_feat", "edge_shard_aug_feat_transpose",
     "edge_shard_aug_feat_dropout", "edge_shard_aug_feat_transpose_dropout",
     "edge_shard_attention", "edge_shard_attention_transpose",
+    "attention_dq", "edge_shard_attention_dq",
 )
 
 # routed layouts whose products under dropout count apart
@@ -343,7 +344,9 @@ def route_key(mat: CsrSpMM, drop=None) -> str:
     ``_dropout`` under dropout; a shard of a per-epoch view, of DOSE_aug2's
     augmented feature matrix (with ``_dropout``) or of AttIGCN's attention,
     ``edge_shard_view``, ``edge_shard_aug_feat``, ``edge_shard_attention``,
-    each with its ``_transpose``)."""
+    each with its ``_transpose``; the query gradient's products of
+    AttIGCN's attention, ``attention_dq`` and ``edge_shard_attention_dq``,
+    ``ops.attention_csr``)."""
     dropout = "" if drop is None else "_dropout"
     if mat.route is None:
         return ("transpose" if mat.transposed else "forward") + dropout
@@ -465,8 +468,9 @@ def values_layout(mat: CsrSpMM, route: str = "attention") -> CsrSpMM:
 class _ValuesProduct(torch.autograd.Function):
     """out = A_v @ x with the edge values v an input: grad_x = A_v^T @ g, the
     kernel on the transpose layout with v gathered into its edge order
-    (``t_pos``); grad_v[e] = g[row_e] . x[col_e], a gather and a row dot
-    (JAX ``attention_spmm.py::_bilinear_bwd``)."""
+    (``t_pos``); grad_v[e] = g[row_e] . x[col_e], the SDDMM kernel with one
+    head (``ops.attention_csr.sddmm_csr``, counted under the layout's route
+    plus ``_d_values``; JAX ``attention_spmm.py::_bilinear_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, values, mat):
@@ -476,14 +480,15 @@ class _ValuesProduct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from inductive_recommendation_tpu_torch.ops.attention_csr import sddmm_csr  # it imports this module
+
         mat, (x, values) = ctx.mat, ctx.saved_tensors
         g = g.contiguous()
         d_x = d_values = None
         if ctx.needs_input_grad[0]:
             d_x = _product(dataclasses.replace(mat.T, val=values[mat.t_pos]), g)
         if ctx.needs_input_grad[1]:
-            rows = mat.edge_rows().long()
-            d_values = (g.index_select(0, rows) * x.index_select(0, mat.col.long())).sum(-1)
+            d_values = sddmm_csr(mat.row_ptr, mat.col, g[:, None, :], x, route=route_key(mat) + "_d_values")[:, 0]
         return d_x, d_values, None
 
 

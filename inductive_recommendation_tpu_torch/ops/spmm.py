@@ -35,7 +35,9 @@ def segment_softmax(scores: torch.Tensor, row_ptr: torch.Tensor, temperature: fl
     no edges has max -inf, taken as 0; a zero sum is taken as 1. The max is
     a constant of the backward, where its gradient is 0 in exact arithmetic.
     The row sums use ``index_add`` (atomics on the card: not bitwise
-    repeatable)."""
+    repeatable). Torch ops on any device: the plain version of
+    ``ops.attention_csr.segment_softmax_csr``, whose kernel AttIGCN's
+    attention runs on the card."""
     n_rows = row_ptr.shape[0] - 1
     rows = row_of_edges(row_ptr, scores.shape[0]).long()
     shape = (n_rows, *scores.shape[1:])

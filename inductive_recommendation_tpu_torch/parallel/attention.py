@@ -8,6 +8,7 @@ small cross-rank reductions over ``[n_rows_pad, h]`` row statistics:
     all-gather:  qk, qb      the folded query (qk = q @ Wk^T per head,
                              qb = q . bk), row-sharded, gathered whole
     per shard:   scores[e] = qk[row_e] . sg(v_local[col_e]) + qb[row_e]
+                             (the SDDMM kernel, ``ops/attention_csr.py``)
                  rmax_s[r] = max over the shard's edges of row r
     all-reduce:  rmax[r]   = max_s rmax_s[r]          (op MAX, detached)
     per shard:   ex[e]     = exp((scores[e] - rmax[row_e]) / T)
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from inductive_recommendation_tpu_torch.ops.attention_csr import attention_scores
 from inductive_recommendation_tpu_torch.parallel.collectives import all_reduce_max, gather_rows_grad, partial_sum
 from inductive_recommendation_tpu_torch.parallel.spmm import EdgeShardedSpMM, edge_sharded_spmm_values
 
@@ -38,13 +40,13 @@ from inductive_recommendation_tpu_torch.parallel.spmm import EdgeShardedSpMM, ed
 def shard_scores(emat: EdgeShardedSpMM, qk: torch.Tensor, qb: torch.Tensor, v: torch.Tensor):
     """(scores [nnz of the shard, h], each edge's global row): the folded
     query ``qk`` [n_rows_pad, h, dv] / ``qb`` [n_rows_pad, h] (whole) against
-    the detached value rows ``v`` [block, dv] of this rank."""
+    the detached value rows ``v`` [block, dv] of this rank, through the SDDMM
+    kernel on the shard's forward CSR with the query's row window
+    ``[row_lo, row_hi)`` (``ops.attention_csr.attention_scores``; its
+    backward is the SpMM kernel on the same CSR, one product a head)."""
     fwd, lo = emat.fwd, emat.row_lo
-    rows = fwd.edge_rows().long()
-    qk_w, qb_w = qk[lo : emat.row_hi], qb[lo : emat.row_hi]
-    values_sg = v.detach().index_select(0, fwd.col.long())
-    scores = torch.einsum("ehv,ev->eh", qk_w.index_select(0, rows), values_sg) + qb_w.index_select(0, rows)
-    return scores, rows + lo
+    scores = attention_scores(fwd, qk[lo : emat.row_hi], qb[lo : emat.row_hi], v)
+    return scores, fwd.edge_rows().long() + lo
 
 
 def shard_row_max(emat: EdgeShardedSpMM, scores: torch.Tensor, g_rows: torch.Tensor) -> torch.Tensor:
