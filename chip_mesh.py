@@ -18,7 +18,8 @@ every rank:
    (2, W / 2) and data (2, W / 2) with W the world size; AttIGCN: edge
    (1, W)): trains the port's trainer ``STEPS`` steps from the same seed,
    holds every loss to the reference's within 1e-5 (the same batches,
-   dropout masks and views), counts one step's SpMM launches by route and
+   dropout masks and views; AttIGCN, whose softmax combines the shards'
+   row statistics, within ``LOSS_TOL``), counts one step's SpMM launches by route and
    collectives by kind (with AttIGCN's attention kernel launches), times the step (the median of ``TIMED`` steps, each
    ended by a synchronise on every rank) and its peak device memory, and
    holds its mesh evaluator's test metrics to a single-device evaluator's on
@@ -75,6 +76,8 @@ MODELS = (
 )
 STEPS = 20
 TIMED = 30
+# each loss against the single-device reference's, relative to max(1, |loss|)
+LOSS_TOL = {"AttIGCN": 1.2e-7}
 
 
 def log(*args):
@@ -130,7 +133,7 @@ def run_mesh(ds, model_cfg, trainer_cfg, mode, shape, ref_losses, single_ms, dev
     trainer = get_trainer(trainer_cfg, ds, get_model(model_cfg, ds), mesh=mesh, mesh_mode=mode)
     losses = np.array([float(trainer.step()) for _ in range(STEPS)])
     diff = np.abs(losses - ref_losses)
-    if not (diff <= 1e-5 * np.maximum(1.0, np.abs(ref_losses))).all():
+    if not (diff <= LOSS_TOL.get(name, 1e-5) * np.maximum(1.0, np.abs(ref_losses))).all():
         raise AssertionError(f"{name} {mode} {shape}: losses {losses} against the single-device {ref_losses}")
     reset_launch_counts()
     attention_csr.reset_launch_counts()

@@ -86,15 +86,20 @@ Phases, each of which raises on failure (the exit code is then not 0):
    counts and times of phase 9 (b) (``STEP_LAUNCHES``). (a) AttIGCN at
    IGCN's grid width (4 heads) with the IGCN row's trainer: the attention
    kernels of ``ops/csrc/attention_csr.cu`` on small edge cases (runs of
-   empty rows, rows past the softmax's block threshold, 1-8 heads, the
-   16-byte and the scalar widths) and on its feature matrix, each
-   against its float64 plain version and bitwise repeatable, timed beside
-   the plain version and the library call (``sddmm_csr`` with 4 heads, the
-   scores, entry by entry within ``check_sddmm``'s rounding bound, beside
-   the [nnz, h, dv] gathers it replaced; with one head, d(values), beside
-   ``torch.sparse.sampled_addmm``; ``segment_softmax_csr`` within 1e-5 *
-   max(1, max |float64|) beside ``segment_softmax``; its backward within
-   1e-5 of max |float64| beside autograd's), a query-gradient product, the
+   empty rows, rows cut across many softmax chunks, the 12,745-edge row,
+   rows cut exactly at chunk ends, a row of -inf scores, 1-8 heads, the
+   16-byte and the scalar widths and alignments) and on its feature
+   matrix, each against its float64 plain version and bitwise repeatable,
+   timed beside the plain version and the library call (``sddmm_csr`` with
+   4 heads, the scores, entry by entry within ``check_sddmm``'s rounding
+   bound, beside the [nnz, h, dv] gathers it replaced; with one head,
+   d(values), beside ``torch.sparse.sampled_addmm``; the softmax passes
+   ``softmax_stats`` (m exactly, s within 1e-5 of max(1, s) a row),
+   ``softmax_apply`` (within 1e-5 * max(1, max |float64|)) and their
+   backward modes (c likewise, g_s within 1e-5 of max |float64|), each
+   timed alone; ``segment_softmax_csr``, the two passes, beside
+   ``segment_softmax``, and its backward beside autograd's), a
+   query-gradient product, the
    product with the model's attention as edge values and its transpose
    against float64, d(values) within 1e-5 of max |float64|, ``get_rep``
    against the float64 plain chain; the attention's device time alone with
@@ -183,10 +188,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
    feature matrix (under dropout 0.3) cut on the device, the partials summed
    against the whole product (``check_product``'s bound plus 3 roundings)
    and the shards' transposes against the whole transpose; AttIGCN's
-   attention over a 4-way split of the feature matrix, its row maxima and
-   sums combined over the shards, edge by edge within 1e-5 of the
+   attention over a 4-way split of the feature matrix, the shards'
+   statistics passes combined (the maxima, the sums rescaled to them and
+   added) and their apply passes, edge by edge within 1e-5 of the
    single-device attention, and the partial products with it as edge values
-   against the whole one; shard 0's times for each.
+   against the whole one; shard 0's times for each. AttIGCN's edge losses
+   are the single-device trainer's bit for bit where the shard's CSR is the
+   whole attention layout (world 1), else within 6e-8, and its edge run
+   launches every softmax pass on the ``edge_shard_attention`` route.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
 serving path and read just after, and again around the training runs of
@@ -252,12 +261,7 @@ from inductive_recommendation_tpu_torch.parallel import (
     reset_collective_counts,
     sharded_recommend_all_users,
 )
-from inductive_recommendation_tpu_torch.parallel.attention import (
-    shard_attention_from,
-    shard_exp,
-    shard_row_max,
-    shard_scores,
-)
+from inductive_recommendation_tpu_torch.parallel.attention import shard_apply, shard_scores, shard_stats
 from inductive_recommendation_tpu_torch.parallel.collectives import counts as collective_counts
 from inductive_recommendation_tpu_torch.parallel.spmm import build_edge_sharded_on_device, place_rows, values_shard
 from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
@@ -304,10 +308,12 @@ STEP_LAUNCHES = {
     "IDCF_LGCN": {"forward": 14},
     # the query's feat product and the adjacency's 3 + 3; the aggregation and
     # its backward; the query's gradient, one product a head; the attention
-    # kernels: the scores, the softmax and its backward, d(values)
+    # kernels: the scores, d(values), the softmax's statistics (chunks and
+    # cut rows) and apply passes, forward and backward
     "AttIGCN": {"forward": 14, "attention": 2, "attention_transpose": 2, "attention_dq": 8,
-                "sddmm_csr/attention": 1, "sddmm_csr/attention_d_values": 1, "segment_softmax_csr/attention": 1,
-                "segment_softmax_csr_backward/attention": 1},
+                "sddmm_csr/attention": 1, "sddmm_csr/attention_d_values": 1, "softmax_stats/attention": 2,
+                "softmax_apply/attention": 1, "softmax_stats_backward/attention": 2,
+                "softmax_apply_backward/attention": 1},
     "SGL": {"forward": 12, "view": 24},
     "HALF": {"forward": 12, "view": 12},
     # DOSE_aug's 32, the view's feature products on the augmented matrix
@@ -357,12 +363,23 @@ PHILOX_OPS_PER_EDGE = 100
 # operations of one (edge, head) entry of the row softmax (a compare, two
 # subtractions, divisions and exponentials, an add, the division by the sum
 # and the head mean's add), each counted as one at the fp32 rate; its
-# backward's (two multiply-adds, a subtraction, a division) likewise
+# backward's (two multiply-adds, a subtraction, a division) likewise. The
+# statistics pass takes the compare, a subtraction, a division, an
+# exponential and an add of them, the apply pass the rest; backward a
+# multiply-add and the rest
 SOFTMAX_OPS_PER_ENTRY = 10
 SOFTMAX_BACKWARD_OPS_PER_ENTRY = 5
+SOFTMAX_STATS_OPS_PER_ENTRY, SOFTMAX_APPLY_OPS_PER_ENTRY = 5, 5
+SOFTMAX_STATS_BACKWARD_OPS_PER_ENTRY, SOFTMAX_APPLY_BACKWARD_OPS_PER_ENTRY = 2, 3
+# the kernels of the softmax passes, by the names the profiler gives them
+SOFTMAX_KERNEL_NAMES = ("softmax_stats_chunk_kernel", "softmax_stats_carry_kernel", "softmax_apply_kernel")
+# phase 13: AttIGCN's edge losses at world 1 are the single-device trainer's
+# bit for bit where the shard's CSR is the whole layout, else within this
+# (the largest difference any family's edge run has shown)
+ATT_EDGE_LOSS_TOL = 6e-8
 REL_TOL = 1e-5
 # the port's own kernels, by the names the profiler gives them
-OWN_KERNELS = ("spmm", "sddmm", "softmax_rows")
+OWN_KERNELS = ("spmm", "sddmm", "softmax")
 U_FP32 = 2.0**-24  # fp32's unit roundoff
 
 
@@ -1464,7 +1481,9 @@ def measure_attention_kernel(name, kernel, plain, library, check, bound) -> dict
     if library is None:
         row["library_ms"] = row["library_ms_windowed"] = None
     row["bound_ms"], row["bound_by"] = bound
-    row["kernel_device_ms"] = kernel_device_ms(kernel, kernels=("sddmm", "softmax_rows"))
+    device = kernel_device_ms(kernel, kernels=("sddmm",) + SOFTMAX_KERNEL_NAMES)
+    row["kernel_device_ms"] = device
+    row["kernel_device_ms_total"] = None if device is None else sum(device.values())
     row["clocks_after"] = card_clocks()
     log(f"{name}: max abs err {row['max_abs_err']:.3g} (bitwise repeatable); single calls: kernel {row['ms']:.4f} "
         f"ms, plain {row['plain_ms']:.4f} ms, library {row['library_ms']}; windows of 10: kernel "
@@ -1474,53 +1493,103 @@ def measure_attention_kernel(name, kernel, plain, library, check, bound) -> dict
     return row
 
 
+def twice(what, fn):
+    """``fn()`` twice: raises unless the two results are bitwise equal."""
+    out, again = fn(), fn()
+    torch.cuda.synchronize()
+    pairs = zip(out, again) if isinstance(out, tuple) else [(out, again)]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+    return out
+
+
+def check_softmax_passes(what, rp, scores, g, temp) -> dict:
+    """The softmax passes' kernels on one CSR against their float64 plain
+    versions, each launched twice and bitwise repeatable: the statistics m
+    exactly (a max of the same fp32 values) and s within REL_TOL * max(1, s)
+    row by row; p and attn from the kernel's statistics (``close``); the
+    backward's c within REL_TOL * max(1, max |float64|) and g_s within REL_TOL
+    of max |float64|, from the kernel's p; the whole softmax and its backward
+    (the passes chained) equal to the passes. ``scores`` / ``g`` may be off
+    16-byte alignment (the scalar path). -> max abs errors by pass."""
+    m, s_ = twice(f"{what} softmax_stats", lambda: attention_csr.softmax_stats_cuda(rp, scores, temp))
+    ref_m, ref_s = attention_csr.softmax_stats_reference(rp, scores.double(), temp)
+    if not torch.equal(m.double(), ref_m):
+        raise AssertionError(f"{what} softmax_stats: m differs from the float64 max")
+    err_s = ((s_.double() - ref_s).abs() / ref_s.clamp(min=1.0)).max().item() if ref_s.numel() else 0.0
+    if not err_s <= REL_TOL:
+        raise AssertionError(f"{what} softmax_stats: s off by {err_s} of max(1, s)")
+    p, attn = twice(f"{what} softmax_apply", lambda: attention_csr.softmax_apply_cuda(rp, scores, m, s_, temp))
+    ref_p, ref_attn = attention_csr.softmax_apply_reference(rp, scores.double(), m.double(), s_.double(), temp)
+    err_p = max(close(p, ref_p, f"{what} softmax_apply p"), close(attn, ref_attn, f"{what} softmax_apply attn"))
+    c = twice(f"{what} softmax_stats_backward", lambda: attention_csr.softmax_stats_backward_cuda(rp, p, g))
+    ref_c = attention_csr.softmax_stats_backward_reference(rp, p.double(), g.double())
+    err_c = close(c, ref_c, f"{what} softmax_stats_backward c")
+    g_s = twice(f"{what} softmax_apply_backward",
+                lambda: attention_csr.softmax_apply_backward_cuda(rp, p, g, c, temp))
+    ref_gs = attention_csr.softmax_apply_backward_reference(rp, p.double(), g.double(), c.double(), temp)
+    err_gs = (g_s.double() - ref_gs).abs().max().item() if ref_gs.numel() else 0.0
+    if not err_gs <= REL_TOL * ref_gs.abs().max().item():
+        raise AssertionError(f"{what} softmax_apply_backward: max abs err {err_gs}")
+    whole = attention_csr.segment_softmax_csr(rp, scores, temp)
+    if not (torch.equal(whole[0], p) and torch.equal(whole[1], attn)
+            and torch.equal(attention_csr.segment_softmax_csr_backward(rp, p, g, temp), g_s)):
+        raise AssertionError(f"{what}: the whole softmax is not its two passes")
+    return {"softmax_stats": err_s, "softmax_apply": err_p, "softmax_stats_backward": err_c,
+            "softmax_apply_backward": err_gs}
+
+
+def misaligned(t):
+    """The same values 4 bytes past a 16-byte aligned start."""
+    return torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)[1:].view_as(t).copy_(t)
+
+
 def check_attention_edge_cases(rng) -> float:
     """The attention kernels on small CSRs: a run of 3,000 empty rows, rows
-    past the softmax's block threshold (5,000 and 1,100 edges), one row;
-    h in {1, 2, 3, 4, 8}; widths of the 16-byte path (8, 16, 64, 128) and of
-    the scalar one (37, 200, and 64 with x off 16-byte alignment). Each
-    kernel against its float64 plain version (K1 within ``check_sddmm``'s
-    bound, K2 within 1e-5 * max(1, max |float64|), K3 within 1e-5 of max
-    |float64|), each twice bitwise equal."""
+    cut across many softmax chunks (5,000 and 1,100 edges), one row, the
+    feature matrix's 12,745-edge row, rows cut exactly at the softmax's chunk
+    ends, each with one row of -inf scores. ``sddmm_csr`` on the first two
+    at h in {1, 2, 3, 4, 8} and widths of the 16-byte path (8, 16, 64, 128)
+    and of the scalar one (37, 200, and 64 with x off 16-byte alignment),
+    within ``check_sddmm``'s bound, twice bitwise equal; the softmax passes
+    on all at h 1-8, aligned and not (the scalar path), against their
+    float64 plain versions (:func:`check_softmax_passes`)."""
     worst = 0.0
+    chunk = attention_csr.SOFTMAX_CHUNK
     cases = [
         ("empty runs and long rows", np.concatenate([np.zeros(3000, np.int64), rng.integers(0, 5, 500), [5000],
                                                       np.zeros(100, np.int64), [1100], rng.integers(0, 40, 300),
                                                       np.zeros(50, np.int64)]), 900),
         ("one row", np.array([3]), 5),
+        ("a 12,745-edge row", np.concatenate([[12745], rng.integers(0, 30, 200)]), 13000),
+        ("rows cut at chunk ends", np.array([chunk, chunk, 2 * chunk, 1, chunk - 1, 0, 0, chunk, 3, 5]), 600),
     ]
-    for name, degrees, n_cols in cases:
+    for i, (name, degrees, n_cols) in enumerate(cases):
         row = rows_of_degrees(degrees)
         mat = build_csr_spmm(row, rng.integers(0, n_cols, len(row)), np.ones(len(row)), (len(degrees), n_cols),
                              device="cuda")
         rp, col = mat.row_ptr, mat.col
-        for h in (1, 2, 3, 4, 8):
+        for h in (1, 2, 3, 4, 8) if i < 2 else ():
             for dv, aligned in ((8, True), (16, True), (64, True), (128, True), (37, True), (200, True), (64, False)):
                 a = torch.randn(mat.n_rows, h, dv, device="cuda")
                 x = torch.randn(n_cols, dv, device="cuda")
-                if not aligned:  # the same values 4 bytes past an aligned start
-                    x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(x).copy_(x)
+                if not aligned:
+                    x = misaligned(x)
                 b = torch.randn(mat.n_rows, h, device="cuda")
-                out, again = (attention_csr.sddmm_csr_cuda(rp, col, a, x, b) for _ in range(2))
-                torch.cuda.synchronize()
-                if not torch.equal(out, again):
-                    raise AssertionError(f"{name}: sddmm_csr h {h} dv {dv}: two launches differ")
+                out = twice(f"{name}: sddmm_csr h {h} dv {dv}", lambda: attention_csr.sddmm_csr_cuda(rp, col, a, x, b))
                 worst = max(worst, check_sddmm(f"{name} sddmm_csr h {h} dv {dv} aligned {aligned}", mat, a, x, b,
                                                out)["max_abs_err"])
+        # the last row of more than one edge gets -inf scores
+        neg = len(degrees) - 1 - int(np.argmax(degrees[::-1] > 1)) if len(degrees) > 1 else None
+        for h in range(1, attention_csr.MAX_HEADS + 1):
             scores = torch.randn(mat.nnz, h, device="cuda") * 30.0
-            (p, attn), (p2, attn2) = (attention_csr.segment_softmax_csr_cuda(rp, scores, 80.0) for _ in range(2))
+            if neg is not None:
+                scores[int(rp[neg]) : int(rp[neg + 1])] = -torch.inf
             g = torch.randn(mat.nnz, device="cuda")
-            g_s, g_s2 = (attention_csr.segment_softmax_csr_backward_cuda(rp, p, g, 80.0) for _ in range(2))
-            torch.cuda.synchronize()
-            if not (torch.equal(p, p2) and torch.equal(attn, attn2) and torch.equal(g_s, g_s2)):
-                raise AssertionError(f"{name}: the softmax kernels, h {h}: two launches differ")
-            ref_p, ref_attn = attention_csr.segment_softmax_csr_reference(rp, scores.double(), 80.0)
-            worst = max(worst, close(p, ref_p, f"{name} segment_softmax_csr p, h {h}"),
-                        close(attn, ref_attn, f"{name} segment_softmax_csr attn, h {h}"))
-            ref = attention_csr.segment_softmax_csr_backward_reference(rp, ref_p, g.double(), 80.0)
-            err = (g_s.double() - ref).abs().max().item()
-            if not err <= REL_TOL * ref.abs().max().item():
-                raise AssertionError(f"{name} segment_softmax_csr_backward, h {h}: max abs err {err}")
+            for aligned in (True, False):
+                sc, gg = (scores, g) if aligned else (misaligned(scores), misaligned(g))
+                errs = check_softmax_passes(f"{name}, h {h}, aligned {aligned}", rp, sc, gg, 80.0)
+                worst = max(worst, errs["softmax_apply"], errs["softmax_stats_backward"])
     log(f"attention kernel edge cases: ok, max abs err {worst:.3g}, two launches bitwise equal")
     return worst
 
@@ -1578,16 +1647,44 @@ def check_attention_kernels(model, params, rng) -> dict:
             return {"max_abs_err": max(close(out[0], ref_p, "segment_softmax_csr p"),
                                        close(out[1], ref_attn, "segment_softmax_csr attn"))}
 
+        nnz_h, rows_h = att.nnz * h, att.n_rows * h
         rows["softmax"] = measure_attention_kernel(
-            f"segment_softmax_csr h {h}",
-            lambda: attention_csr.segment_softmax_csr_cuda(rp, scores, temp),
+            f"segment_softmax_csr h {h} (softmax_stats + softmax_apply)",
+            lambda: attention_csr.segment_softmax_csr(rp, scores, temp),
             lambda: attention_csr.segment_softmax_csr_reference(rp, scores, temp),
             lambda: segment_softmax(scores, rp, temp).mean(dim=-1),
             check_softmax,
-            bound_ms(4 * (att.n_rows + 1 + 2 * att.nnz * h + att.nnz), SOFTMAX_OPS_PER_ENTRY * att.nnz * h),
+            bound_ms(4 * (att.n_rows + 1 + 2 * nnz_h + att.nnz), SOFTMAX_OPS_PER_ENTRY * nnz_h),
         )
-        p, attn = attention_csr.segment_softmax_csr_cuda(rp, scores, temp)
+        p, attn = attention_csr.segment_softmax_csr(rp, scores, temp)
+        m, s_ = attention_csr.softmax_stats_cuda(rp, scores, temp)
         g_attn = attention_csr.sddmm_csr_cuda(rp, col, g3, emb)[:, 0].contiguous()
+        c = attention_csr.softmax_stats_backward_cuda(rp, p, g_attn)
+        rows["softmax_passes_max_abs_err"] = check_softmax_passes("the feature matrix", rp, scores, g_attn, temp)
+
+        def err_only(what):
+            return lambda out: {"max_abs_err": rows["softmax_passes_max_abs_err"][what]}
+
+        # each pass alone, on the same inputs (checked just above)
+        rows["softmax_stats"] = measure_attention_kernel(
+            f"softmax_stats h {h}", lambda: attention_csr.softmax_stats_cuda(rp, scores, temp),
+            lambda: attention_csr.softmax_stats_reference(rp, scores, temp), None, err_only("softmax_stats"),
+            bound_ms(4 * (att.n_rows + 1 + nnz_h + 2 * rows_h), SOFTMAX_STATS_OPS_PER_ENTRY * nnz_h))
+        rows["softmax_apply"] = measure_attention_kernel(
+            f"softmax_apply h {h}", lambda: attention_csr.softmax_apply_cuda(rp, scores, m, s_, temp),
+            lambda: attention_csr.softmax_apply_reference(rp, scores, m, s_, temp), None, err_only("softmax_apply"),
+            bound_ms(4 * (att.n_rows + 1 + 2 * nnz_h + 2 * rows_h + att.nnz), SOFTMAX_APPLY_OPS_PER_ENTRY * nnz_h))
+        rows["softmax_stats_backward"] = measure_attention_kernel(
+            f"softmax_stats_backward h {h}", lambda: attention_csr.softmax_stats_backward_cuda(rp, p, g_attn),
+            lambda: attention_csr.softmax_stats_backward_reference(rp, p, g_attn), None,
+            err_only("softmax_stats_backward"),
+            bound_ms(4 * (att.n_rows + 1 + nnz_h + att.nnz + rows_h), SOFTMAX_STATS_BACKWARD_OPS_PER_ENTRY * nnz_h))
+        rows["softmax_apply_backward"] = measure_attention_kernel(
+            f"softmax_apply_backward h {h}",
+            lambda: attention_csr.softmax_apply_backward_cuda(rp, p, g_attn, c, temp),
+            lambda: attention_csr.softmax_apply_backward_reference(rp, p, g_attn, c, temp), None,
+            err_only("softmax_apply_backward"),
+            bound_ms(4 * (att.n_rows + 1 + 2 * nnz_h + att.nnz + rows_h), SOFTMAX_APPLY_BACKWARD_OPS_PER_ENTRY * nnz_h))
 
         def check_backward(out):
             ref = attention_csr.segment_softmax_csr_backward_reference(rp, p.double(), g_attn.double(), temp)
@@ -1600,15 +1697,15 @@ def check_attention_kernels(model, params, rng) -> dict:
     a_req = segment_softmax(s_req, rp, temp).mean(dim=-1)
     with torch.no_grad():
         rows["softmax_backward"] = measure_attention_kernel(
-            f"segment_softmax_csr_backward h {h}",
-            lambda: attention_csr.segment_softmax_csr_backward_cuda(rp, p, g_attn, temp),
+            f"segment_softmax_csr_backward h {h} (softmax_stats_backward + softmax_apply_backward)",
+            lambda: attention_csr.segment_softmax_csr_backward(rp, p, g_attn, temp),
             lambda: attention_csr.segment_softmax_csr_backward_reference(rp, p, g_attn, temp),
             lambda: torch.autograd.grad(a_req, s_req, g_attn, retain_graph=True)[0],
             check_backward,
-            bound_ms(4 * (att.n_rows + 1 + 2 * att.nnz * h + att.nnz), SOFTMAX_BACKWARD_OPS_PER_ENTRY * att.nnz * h),
+            bound_ms(4 * (att.n_rows + 1 + 2 * nnz_h + att.nnz), SOFTMAX_BACKWARD_OPS_PER_ENTRY * nnz_h),
         )
         del s_req, a_req
-        g_s = attention_csr.segment_softmax_csr_backward_cuda(rp, p, g_attn, temp)
+        g_s = attention_csr.segment_softmax_csr_backward(rp, p, g_attn, temp)
         v1 = torch.cat([emb, emb.new_ones(emb.shape[0], 1), emb.new_zeros(emb.shape[0], 3)], dim=1).contiguous()
         rows["attention_dq"] = measure_spmm(
             "attention_dq (head 0)", dataclasses.replace(att, val=g_s[:, 0].contiguous(), route="attention_dq"), v1)
@@ -2446,6 +2543,22 @@ def same_losses(what, got, want) -> float:
     return float(diff.max())
 
 
+def att_edge_losses(edge, model, got, want) -> bool:
+    """AttIGCN's edge losses against the single-device trainer's: bit for
+    bit where the shard's CSR is the whole attention layout (world 1: the
+    same kernels on the same edges in the same order, the all-reduces
+    identities), else within ATT_EDGE_LOSS_TOL * max(1, |loss|). -> whether
+    the shard's CSR is the whole layout."""
+    emat, whole = edge.feat_emat, model.att_feat
+    same = (emat.row_lo == 0 and emat.fwd.n_rows == whole.n_rows and torch.equal(emat.fwd.row_ptr, whole.row_ptr)
+            and torch.equal(emat.fwd.col, whole.col))
+    diff = np.abs(got - want)
+    if (same and diff.any()) or not (diff <= ATT_EDGE_LOSS_TOL * np.maximum(1.0, np.abs(want))).all():
+        raise AssertionError(f"AttIGCN edge mode (shard's CSR the whole layout: {same}): losses {got} against the "
+                             f"single-device trainer's {want}")
+    return same
+
+
 def counted_run(fn) -> tuple:
     """``fn()`` with the launch and collective counts set to 0 just before
     and read just after: (its result, launches by route, collectives by
@@ -2472,14 +2585,15 @@ def split_on_card(name, whole, route, x, g, drop=None):
 
 def attention_split(model, params, rng) -> tuple:
     """AttIGCN's attention over a SHARDS-way column split of the feature
-    matrix on one card: each shard's scores and row maxima, the maxima
-    combined, each shard's exponentials and row sums, the sums combined (the
-    two all-reduces of ``parallel/attention.py``, here over the shards), then
-    each shard's product with its attention as edge values through the
-    kernel. The attention equals the single-device ``AttIGCN.attention``
-    edge by edge within REL_TOL; the partials summed, the whole product with
-    that attention within ``check_product``'s bound plus SHARDS - 1
-    roundings. -> (shard 0 with its attention, its operand rows, result)."""
+    matrix on one card: each shard's scores and statistics pass (its rows'
+    maxima and sums), the maxima combined and the sums rescaled to them and
+    added (the two all-reduces of ``parallel/attention.py``, here over the
+    shards), each shard's apply pass, then each shard's product with its
+    attention as edge values through the kernel. The attention equals the
+    single-device ``AttIGCN.attention`` edge by edge within REL_TOL; the
+    partials summed, the whole product with that attention within
+    ``check_product``'s bound plus SHARDS - 1 roundings. -> (shard 0 with
+    its attention, its operand rows, result)."""
     d, h = model.embedding_size, model.n_heads
     n, feat = model.n_users + model.n_items, model.feat
     emb = params["embedding"][: model.feat_n_cols].detach()
@@ -2497,11 +2611,12 @@ def attention_split(model, params, rng) -> tuple:
     qk_pad, qb_pad = qk.new_zeros(n_pad, h, d), qb.new_zeros(n_pad, h)
     qk_pad[:n], qb_pad[:n] = qk, qb
     with torch.no_grad():
-        parts = [shard_scores(sh, qk_pad, qb_pad, v_pad[s * blk : (s + 1) * blk]) for s, sh in enumerate(shards)]
-        row_max = torch.stack([shard_row_max(sh, *p) for sh, p in zip(shards, parts)]).amax(dim=0)
-        exps = [shard_exp(sc, row_max, g, model.temperature) for sc, g in parts]
-        den = torch.stack([den_s for _, den_s in exps]).sum(dim=0)
-        attn = [shard_attention_from(ex, den, g) for (ex, _), (_, g) in zip(exps, parts)]
+        temp = model.temperature
+        scores = [shard_scores(sh, qk_pad, qb_pad, v_pad[s * blk : (s + 1) * blk]) for s, sh in enumerate(shards)]
+        stats = [shard_stats(sh, sc, temp) for sh, sc in zip(shards, scores)]
+        m_all = torch.stack([m for m, _ in stats]).amax(dim=0)
+        s_all = sum(attention_csr.rescale_stats(m, s_, m_all, temp) for m, s_ in stats)
+        attn = [shard_apply(sh, sc, m_all, s_all, temp)[1] for sh, sc in zip(shards, scores)]
         by_eid = torch.zeros(int(feat.eid.max()) + 1, device=emb.device)
         by_eid[feat.eid.long()] = whole_attn
         got = torch.zeros_like(by_eid)
@@ -2557,6 +2672,8 @@ def families_phase(ds, card, rng, mesh) -> tuple:
         add(run_routes, routes)
         add(run_kinds, kinds)
         res["edge_loss_max_abs_diff"] = same_losses(f"{name} edge mode", got, want)
+        if name == "AttIGCN":
+            res["att_shard_is_whole_layout"] = att_edge_losses(edge, model, got, want)
         res["edge_grad_max_err_over_bound"] = same_grads(f"{name} edge mode", got_grads, want_grads)
         del got_grads, want_grads
         _, per_step, per_step_kinds = counted_run(edge.step)
@@ -2610,7 +2727,8 @@ def families_phase(ds, card, rng, mesh) -> tuple:
     out["edge_launches_run"], out["edge_collectives_run"] = run_routes, run_kinds
     for route in ("edge_shard_view", "edge_shard_view_transpose", "edge_shard_aug_feat_dropout",
                   "edge_shard_attention", "edge_shard_attention_dq", "sddmm_csr/edge_shard_attention",
-                  "sddmm_csr/edge_shard_attention_d_values"):
+                  "sddmm_csr/edge_shard_attention_d_values",
+                  *(f"{k}/edge_shard_attention" for k in attention_csr.SOFTMAX_KERNELS)):
         if not run_routes.get(route):
             raise AssertionError(f"phase 13's edge runs launched no {route}: {run_routes}")
 
@@ -2924,22 +3042,25 @@ def main():
                            plain_attention_step_peak_bytes=lmodels["AttIGCN"]["plain_attention"]["step_peak_bytes"],
                            plain_attention_step_added_bytes=lmodels["AttIGCN"]["plain_attention"]["step_added_bytes"])
 
-    def att_entry(name, row, key, per):
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_windowed", "plain_ms_windowed",
-                "library_ms_windowed", "max_abs_err")
+    def att_entry(name, row, keys, per, replaces="inductive_recommendation_tpu/ops/attention_spmm.py:175"):
+        keys = (keys,) if isinstance(keys, str) else keys
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_windowed", "plain_ms_windowed",
+                  "library_ms_windowed", "max_abs_err", "kernel_device_ms_total")
         return {
             "name": name,
             "route": "cuda",
             "source": "inductive_recommendation_tpu_torch/ops/csrc/attention_csr.cu",
-            "replaces": "inductive_recommendation_tpu/ops/attention_spmm.py:175",
+            "replaces": replaces,
             "tpu_kernel": None,
-            "launches": att_run[key],
-            "launches_per_step": att_step[key],
-            **{k: row[k] for k in keys},
+            "route_keys": list(keys),
+            "launches": sum(att_run[k] for k in keys),
+            "launches_per_step": sum(att_step[k] for k in keys),
+            **{k: row[k] for k in fields},
             "per": per + "; no TPU kernel: the JAX package computes it with XLA ops (attention_spmm.py:16-34)",
             "detail": [row],
         }
 
+    softmax_at = "inductive_recommendation_tpu/ops/attention_spmm.py:203-210"
     att_entries = [
         att_entry("sddmm_csr", lrows["sddmm_scores"], "sddmm_csr/attention",
                   f"AttIGCN's scores, {ATT_CONFIG['n_heads']} heads: the folded query qk [n_rows, h, 64] read once a "
@@ -2948,12 +3069,23 @@ def main():
         att_entry("sddmm_csr_d_values", lrows["sddmm_d_values"], "sddmm_csr/attention_d_values",
                   "d(values) of the product with the attention as edge values: the cotangent's row . the table's "
                   "row, one head; library_ms: torch.sparse.sampled_addmm on the CSR"),
-        att_entry("segment_softmax_csr", lrows["softmax"], "segment_softmax_csr/attention",
-                  "the per-row softmax of each head at T and the head mean; library_ms: the torch ops it replaced "
-                  "(scatter_reduce amax, exp, index_add)"),
-        att_entry("segment_softmax_csr_backward", lrows["softmax_backward"], "segment_softmax_csr_backward/attention",
-                  "the scores' cotangent from the attention's; library_ms: autograd's backward through the torch "
-                  "ops' softmax and head mean"),
+        att_entry("segment_softmax_csr", lrows["softmax"], ("softmax_stats/attention", "softmax_apply/attention"),
+                  "the per-row softmax of each head at T and the head mean: softmax_stats (its chunk and cut-row "
+                  "launches) then softmax_apply; library_ms: the torch ops it replaced (scatter_reduce amax, exp, "
+                  "index_add)", softmax_at),
+        att_entry("segment_softmax_csr_backward", lrows["softmax_backward"],
+                  ("softmax_stats_backward/attention", "softmax_apply_backward/attention"),
+                  "the scores' cotangent from the attention's: softmax_stats_backward then softmax_apply_backward; "
+                  "library_ms: autograd's backward through the torch ops' softmax and head mean", softmax_at),
+        att_entry("softmax_stats", lrows["softmax_stats"], "softmax_stats/attention",
+                  "each row's max and sum of exp((x - max) / T) of each head, edge-balanced chunks with the cut rows "
+                  "combined in chunk order by a second launch (counted too)", softmax_at),
+        att_entry("softmax_apply", lrows["softmax_apply"], "softmax_apply/attention",
+                  "p and its head mean from the row statistics, edge-balanced", softmax_at),
+        att_entry("softmax_stats_backward", lrows["softmax_stats_backward"], "softmax_stats_backward/attention",
+                  "each row's sum of p g of each head, the statistics pass in backward mode", softmax_at),
+        att_entry("softmax_apply_backward", lrows["softmax_apply_backward"], "softmax_apply_backward/attention",
+                  "g_s = p (g - c[row]) / (h T), the apply pass in backward mode", softmax_at),
     ]
     view["detail"].append(lrows["sgl_view"])
 
@@ -3011,6 +3143,9 @@ def main():
               "attention as edge values (the row maxima and sums combined over the shards); launches: AttIGCN's "
               "edge-mode run", [frows["attention"]]),
     ]
+    for e in att_entries:  # the same kernels on the shard path: phase 13's edge runs
+        e["launches_edge_shard"] = sum(fruns.get(k.replace("/attention", "/edge_shard_attention"), 0)
+                                       for k in e["route_keys"])
     print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *att_entries,
                                   *shard_entries, *family_entries]}))
     print(

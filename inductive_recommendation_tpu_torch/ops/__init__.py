@@ -1,7 +1,7 @@
 """Sparse products and retrieval ops. ``csr_spmm`` holds the hand-written CUDA
 SpMM (``csrc/spmm_csr.cu``) and its plain PyTorch version; ``attention_csr``
 the attention kernels (``csrc/attention_csr.cu``: the scores, the row
-softmax and its backward) with theirs; ``attention_spmm`` AttIGCN's
+softmax's statistics and apply passes, forward and backward) with theirs; ``attention_spmm`` AttIGCN's
 attention aggregation over both; ``cosine_topk`` the DOSE selection."""
 
 from inductive_recommendation_tpu_torch.ops.csr_spmm import (

@@ -34,8 +34,8 @@ SIGNATURES = {
     ],
     "attention_csr": [
         ("sddmm_csr", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-        ("segment_softmax_csr", [_P, _P, _I, _P, _P, _P, _I, _I, _F, _P]),
-        ("segment_softmax_csr_backward", [_P, _P, _I, _P, _P, _P, _I, _I, _F, _P]),
+        ("softmax_stats", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P]),
+        ("softmax_apply", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P]),
     ],
 }
 

@@ -14,8 +14,9 @@ attention-weighted sum of the value rows:
 :func:`attention_spmm_fused_kv` folds the key map into the query (JAX
 ``_attention_forward_qk``): the scores are the SDDMM kernel over the folded
 query ``qk`` [n_rows, h, dv], read once a row, and the gathered [dv]-wide
-value rows; the softmax and its head mean are the row-softmax kernel and
-its backward (``ops/attention_csr.py``, ``csrc/attention_csr.cu``); the
+value rows; the softmax and its head mean are the softmax's statistics and
+apply passes, forward and backward (``ops/attention_csr.py``,
+``csrc/attention_csr.cu``); the
 query's gradient is the SpMM kernel, one product a head. The aggregation is
 the SpMM with the attention as its edge values (``ops.csr_spmm.
 spmm_csr_values`` on a ``values_layout``), whose backward runs the same
@@ -53,8 +54,8 @@ def folded_query(q, w_k, b_k, dv: int) -> tuple[torch.Tensor, torch.Tensor]:
 def fused_kv_attention(mat: CsrSpMM, q, w_k, b_k, v, temperature: float) -> torch.Tensor:
     """fp32 [nnz]: the attention of :func:`attention_spmm_fused_kv` on
     ``mat``'s edges: the folded query's scores (the SDDMM kernel), their row
-    softmax and head mean (the row-softmax kernel); on CPU tensors the
-    kernels' plain versions."""
+    softmax and head mean (the statistics and apply passes); on CPU
+    tensors the kernels' plain versions."""
     qk, qb = folded_query(q, w_k, b_k, v.shape[-1])
     return softmax_head_mean(mat, attention_scores(mat, qk, qb, v), temperature)
 

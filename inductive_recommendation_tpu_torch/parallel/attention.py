@@ -3,73 +3,106 @@
 
 The feature matrix is column-block sharded (``parallel/spmm.py``), so a
 row's edges span the ranks of a 'model' group and its softmax needs two
-small cross-rank reductions over ``[n_rows_pad, h]`` row statistics:
+small cross-rank reductions over ``[n_rows_pad, h]`` row statistics, which
+come between the two passes of the single-device softmax
+(``ops/attention_csr.py``, ``csrc/attention_csr.cu``):
 
     all-gather:  qk, qb      the folded query (qk = q @ Wk^T per head,
                              qb = q . bk), row-sharded, gathered whole
     per shard:   scores[e] = qk[row_e] . sg(v_local[col_e]) + qb[row_e]
-                             (the SDDMM kernel, ``ops/attention_csr.py``)
-                 rmax_s[r] = max over the shard's edges of row r
-    all-reduce:  rmax[r]   = max_s rmax_s[r]          (op MAX, detached)
-    per shard:   ex[e]     = exp((scores[e] - rmax[row_e]) / T)
-                 den_s[r]  = sum over the shard's edges of row r
-    all-reduce:  den[r]    = sum_s den_s[r]
-    per shard:   attn[e]   = mean_h ex[e] / den[row_e]
+                             (the SDDMM kernel)
+                 m_s, s_s  = the statistics pass on the shard's CSR: each
+                             row's max and sum of exp((x - m_s) / T) over
+                             the shard's edges (m_s = -inf, s_s = 0 for none)
+    all-reduce:  m[r]      = max_s m_s[r]                       (op MAX)
+    all-reduce:  s[r]      = sum_s s_s[r] exp((m_s[r] - m[r]) / T)
+    per shard:   p, attn   = the apply pass: exp((x - m) / T) / s, its
+                             head mean
                  partial   = A_attn[:, blk_s] @ v_s   (the hand-written
                                                        kernel, values layout)
     reduce-scatter: out    = this rank's rows of the sum
 
 as the single-device ``ops/attention_spmm.py`` computes it (a row with no
-edges has max 0 and sum 1). The row maxima are a constant of the backward
-(their gradient is 0 in exact arithmetic). The gradient convention is
-torch's (``parallel/collectives.py``): each rank reads the gathered query
-and the summed row sums for its own edges, so their backwards reduce-scatter
-and all-reduce the cotangents (JAX's ``shard_map`` transposes its own
-collectives instead).
+edges has max 0 and sum 1). The backward (``_ShardSoftmaxMean``) is the
+statistics pass in backward mode (c[r] = sum p g over the shard's edges), an
+all-reduce of c, and the apply pass in backward mode. The gradient
+convention is torch's (``parallel/collectives.py``): each rank's backward
+gives its part of the one loss's gradient, so the gathered query's backward
+reduce-scatters, and c sums every rank's edges (JAX's ``shard_map``
+transposes its own collectives instead).
 """
 
 from __future__ import annotations
 
 import torch
 
-from inductive_recommendation_tpu_torch.ops.attention_csr import attention_scores
-from inductive_recommendation_tpu_torch.parallel.collectives import all_reduce_max, gather_rows_grad, partial_sum
+from inductive_recommendation_tpu_torch.ops.attention_csr import (
+    attention_scores,
+    rescale_stats,
+    softmax_apply,
+    softmax_apply_backward,
+    softmax_stats,
+    softmax_stats_backward,
+)
+from inductive_recommendation_tpu_torch.ops.csr_spmm import route_key
+from inductive_recommendation_tpu_torch.parallel.collectives import all_reduce, all_reduce_max, gather_rows_grad
 from inductive_recommendation_tpu_torch.parallel.spmm import EdgeShardedSpMM, edge_sharded_spmm_values
 
 
-def shard_scores(emat: EdgeShardedSpMM, qk: torch.Tensor, qb: torch.Tensor, v: torch.Tensor):
-    """(scores [nnz of the shard, h], each edge's global row): the folded
-    query ``qk`` [n_rows_pad, h, dv] / ``qb`` [n_rows_pad, h] (whole) against
-    the detached value rows ``v`` [block, dv] of this rank, through the SDDMM
-    kernel on the shard's forward CSR with the query's row window
-    ``[row_lo, row_hi)`` (``ops.attention_csr.attention_scores``; its
-    backward is the SpMM kernel on the same CSR, one product a head)."""
-    fwd, lo = emat.fwd, emat.row_lo
-    scores = attention_scores(fwd, qk[lo : emat.row_hi], qb[lo : emat.row_hi], v)
-    return scores, fwd.edge_rows().long() + lo
+def shard_scores(emat: EdgeShardedSpMM, qk: torch.Tensor, qb: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[nnz of the shard, h]: the folded query ``qk`` [n_rows_pad, h, dv] /
+    ``qb`` [n_rows_pad, h] (whole) against the detached value rows ``v``
+    [block, dv] of this rank, through the SDDMM kernel on the shard's
+    forward CSR with the query's row window ``[row_lo, row_hi)``
+    (``ops.attention_csr.attention_scores``; its backward is the SpMM kernel
+    on the same CSR, one product a head)."""
+    lo, hi = emat.row_lo, emat.row_hi
+    return attention_scores(emat.fwd, qk[lo:hi], qb[lo:hi], v)
 
 
-def shard_row_max(emat: EdgeShardedSpMM, scores: torch.Tensor, g_rows: torch.Tensor) -> torch.Tensor:
-    """[n_rows_pad, h]: each row's largest score on this shard (-inf for a
-    row with none), detached."""
-    h = scores.shape[1]
-    out = scores.new_full((emat.n_rows_pad, h), -torch.inf)
-    return out.scatter_reduce_(0, g_rows[:, None].expand(-1, h), scores.detach(), "amax")
+def shard_stats(emat: EdgeShardedSpMM, scores: torch.Tensor, temperature: float):
+    """(m, s) [n_rows_pad, h]: the statistics pass over the shard's edges,
+    at the global rows (-inf and 0 where the shard has no edge)."""
+    h, lo, hi = scores.shape[1], emat.row_lo, emat.row_hi
+    m = scores.new_full((emat.n_rows_pad, h), -torch.inf)
+    s = scores.new_zeros(emat.n_rows_pad, h)
+    softmax_stats(emat.fwd.row_ptr, scores, temperature, route_key(emat.fwd), out=(m[lo:hi], s[lo:hi]))
+    return m, s
 
 
-def shard_exp(scores: torch.Tensor, row_max: torch.Tensor, g_rows: torch.Tensor, temperature: float):
-    """(exp((scores - row max) / T) per edge, this shard's row sums of them
-    [n_rows_pad, h]); ``row_max`` the rows' maxima over every shard."""
-    row_max = torch.where(torch.isfinite(row_max), row_max, 0.0)
-    ex = torch.exp((scores - row_max.index_select(0, g_rows)) / temperature)
-    return ex, scores.new_zeros(row_max.shape).index_add(0, g_rows, ex)
+def shard_apply(emat: EdgeShardedSpMM, scores: torch.Tensor, m: torch.Tensor, s: torch.Tensor,
+                temperature: float):
+    """(p [nnz of the shard, h], attn [nnz of the shard]): the apply pass
+    from the statistics over every shard (m, s) [n_rows_pad, h]."""
+    lo, hi = emat.row_lo, emat.row_hi
+    return softmax_apply(emat.fwd.row_ptr, scores, m[lo:hi], s[lo:hi], temperature, route_key(emat.fwd))
 
 
-def shard_attention_from(ex: torch.Tensor, den: torch.Tensor, g_rows: torch.Tensor) -> torch.Tensor:
-    """[nnz of the shard]: the head mean of ``ex`` over the rows' sums over
-    every shard ``den`` (a zero sum taken as 1)."""
-    den = torch.where(den > 0, den, 1.0)
-    return (ex / den.index_select(0, g_rows)).mean(dim=-1)
+class _ShardSoftmaxMean(torch.autograd.Function):
+    """attn [nnz of the shard]: the head mean of the row softmax of the
+    shard's scores over every shard's edges (the statistics pass, the MAX
+    all-reduce of the maxima, the all-reduce of the sums rescaled to them,
+    the apply pass). Backward: the statistics pass in backward mode, one
+    all-reduce of its sums, the apply pass in backward mode."""
+
+    @staticmethod
+    def forward(ctx, scores, emat, temperature, group):
+        m, s = shard_stats(emat, scores, temperature)
+        m_all = all_reduce_max(m.clone(), group)
+        s = all_reduce(rescale_stats(m, s, m_all, temperature), group)
+        p, attn = shard_apply(emat, scores, m_all, s, temperature)
+        ctx.emat, ctx.temperature, ctx.group = emat, temperature, group
+        ctx.save_for_backward(p)
+        return attn
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,), emat, lo, hi = ctx.saved_tensors, ctx.emat, ctx.emat.row_lo, ctx.emat.row_hi
+        route, g = route_key(emat.fwd), g.contiguous()
+        c = p.new_zeros(emat.n_rows_pad, p.shape[1])
+        softmax_stats_backward(emat.fwd.row_ptr, p, g, route, out=c[lo:hi])
+        c = all_reduce(c, ctx.group)
+        return softmax_apply_backward(emat.fwd.row_ptr, p, g, c[lo:hi], ctx.temperature, route), None, None, None
 
 
 def sharded_attention(emat: EdgeShardedSpMM, qk: torch.Tensor, qb: torch.Tensor, v: torch.Tensor,
@@ -78,10 +111,7 @@ def sharded_attention(emat: EdgeShardedSpMM, qk: torch.Tensor, qb: torch.Tensor,
     edges, in the shard's edge order. ``qk`` [n_rows_pad, h, dv] and ``qb``
     [n_rows_pad, h] are the whole folded query (gathered); ``v`` [block, dv]
     this rank's value rows."""
-    scores, g_rows = shard_scores(emat, qk, qb, v)
-    row_max = all_reduce_max(shard_row_max(emat, scores, g_rows), group)
-    ex, den = shard_exp(scores, row_max, g_rows, temperature)
-    return shard_attention_from(ex, partial_sum(den, group), g_rows)
+    return _ShardSoftmaxMean.apply(shard_scores(emat, qk, qb, v), emat, temperature, group)
 
 
 def edge_sharded_attention(emat: EdgeShardedSpMM, qk_local: torch.Tensor, qb_local: torch.Tensor,

@@ -17,9 +17,11 @@ on the CPU, where every wrapper runs its plain PyTorch version:
 - the kernels' wrappers refuse what they cannot launch.
 
 The feature matrix is synthetic (300 rows: an empty row, a 1,100-edge row
-the card's kernels give a whole block, the rest 0-10 edges), inputs from
-numpy seeds, h in {1, 4}, dv in {8, 64}. The kernels themselves are held to
-these plain versions on the card by ``chip_smoke.py`` (phase 10)."""
+that spans several of the softmax passes' chunks, the rest 0-10 edges),
+inputs from numpy seeds, h in {1, 4}, dv in {8, 64}. The kernels themselves
+are held to these plain versions on the card by ``chip_smoke.py`` (phase
+10); the softmax passes alone against JAX in
+``test_torch_port_softmax_passes.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -231,14 +233,44 @@ def test_functions_equal_the_plain_composition(mats, h):
     assert float(grads[0][2].abs().max()) < 1e-10 * float(grads[0][1].abs().max())
 
 
-def test_long_rows_are_listed_once_a_layout(mats):
-    """The softmax kernels' list of rows longer than ``LONG_ROW`` (a block
-    each on the card): the 1,100-edge row, found once for a ``row_ptr``."""
+def test_softmax_chunks_mirror_the_kernel(mats):
+    """``SOFTMAX_CHUNK`` is the kernel's ``kSoftmaxChunk`` (32 lanes of
+    ``kSoftmaxLane`` edges; it sizes the carry buffer and the grid), a CSR
+    with no edge still has a chunk (it writes the empty rows' statistics),
+    and the 1,100-edge row is cut across several chunks."""
+    import re
+    from pathlib import Path
+
+    src = (Path(K.__file__).parent / "csrc" / "attention_csr.cu").read_text()
+    lane = int(re.search(r"constexpr int kSoftmaxLane = (\d+);", src).group(1))
+    assert re.search(r"constexpr int kSoftmaxChunk = 32 \* kSoftmaxLane;", src)
+    assert K.SOFTMAX_CHUNK == 32 * lane
+    assert [K.n_softmax_chunks(n) for n in (0, 1, K.SOFTMAX_CHUNK, K.SOFTMAX_CHUNK + 1)] == [1, 1, 1, 2]
     mat, _ = mats
-    rows = K.long_rows(mat.row_ptr)
-    assert rows.dtype == torch.int32
-    assert rows.tolist() == np.flatnonzero(torch.diff(mat.row_ptr).numpy() > K.LONG_ROW).tolist() == [LONG_ROW]
-    assert K.long_rows(mat.row_ptr) is rows
+    start, end = (int(v) for v in mat.row_ptr[[LONG_ROW, LONG_ROW + 1]])
+    assert end - start == LONG_DEGREE and end // K.SOFTMAX_CHUNK - start // K.SOFTMAX_CHUNK >= 4
+
+
+def test_chunk_first_rows_are_found_once_a_layout(mats):
+    """Each softmax chunk's first row starting at or after its first edge (a
+    lower bound in ``row_ptr``; where the card's passes start their walk),
+    found once for a ``row_ptr`` and kept; one entry for a CSR without
+    edges."""
+    mat, _ = mats
+    rows = K.chunk_first_rows(mat.row_ptr, mat.nnz)
+    assert rows.dtype == torch.int32 and rows.shape == (K.n_softmax_chunks(mat.nnz),)
+    starts = np.arange(rows.shape[0]) * K.SOFTMAX_CHUNK
+    np.testing.assert_array_equal(rows.numpy(), np.searchsorted(mat.row_ptr.numpy(), starts, side="left"))
+    assert K.chunk_first_rows(mat.row_ptr, mat.nnz) is rows
+    assert K.chunk_first_rows(torch.zeros(4, dtype=torch.int32), 0).tolist() == [0]
+
+
+def test_softmax_routes():
+    """Each softmax pass counts under its own key, on the single-device
+    layout's route and on a shard's."""
+    for kernel in K.SOFTMAX_KERNELS:
+        assert {f"{kernel}/attention", f"{kernel}/edge_shard_attention"} <= set(K.ROUTES)
+    assert not any(k.startswith("segment_softmax") for k in K.ROUTES)
 
 
 def test_query_gradient_routes():
@@ -290,7 +322,8 @@ def test_sharded_scores_equal_single_device(coo, mats, S):
     """Every shard's scores (``parallel.attention.shard_scores``: the
     query's row window against the shard's value rows) equal the
     single-device scores edge by edge, and the shards' query gradients
-    summed equal the single-device ones."""
+    summed equal the single-device ones; each shard edge's global row is its
+    row in the whole matrix."""
     from inductive_recommendation_tpu_torch.parallel.attention import shard_scores
     from inductive_recommendation_tpu_torch.parallel.spmm import build_edge_sharded_spmm, values_shard
 
@@ -319,10 +352,10 @@ def test_sharded_scores_equal_single_device(coo, mats, S):
     got = np.zeros_like(gs)
     total = 0
     for s, sh in enumerate(shards):
-        scores, g_rows = shard_scores(sh, qk_pad, qb_pad, v_pad[s * blk : (s + 1) * blk])
+        scores = shard_scores(sh, qk_pad, qb_pad, v_pad[s * blk : (s + 1) * blk])
         eid = sh.fwd.eid.numpy()
         got[eid] = scores.detach().numpy()
-        np.testing.assert_array_equal(g_rows.numpy(), rows_by_eid[eid])
+        np.testing.assert_array_equal(sh.fwd.edge_rows().long().numpy() + sh.row_lo, rows_by_eid[eid])
         total = total + (scores * torch.as_tensor(gs[eid])).sum()
     total.backward()
     want_by_eid = np.zeros_like(gs)
@@ -339,23 +372,33 @@ def test_sharded_scores_equal_single_device(coo, mats, S):
 def test_kernel_wrappers_refuse_what_they_cannot_launch(mats):
     """The CUDA wrappers refuse CPU tensors before any build; the
     dispatchers refuse other devices and mixed ones; more than 8 heads and
-    mismatched shapes are refused."""
+    mismatched shapes are refused, also by the softmax passes."""
     mat, _ = mats
     qk, v = torch.zeros(N_ROWS, 4, 8), torch.zeros(N_COLS, 8)
-    scores, g = torch.zeros(mat.nnz, 4), torch.zeros(mat.nnz)
+    scores, g, stats = torch.zeros(mat.nnz, 4), torch.zeros(mat.nnz), torch.zeros(N_ROWS, 4)
     with pytest.raises(ValueError, match="cuda"):
         K.sddmm_csr_cuda(mat.row_ptr, mat.col, qk, v)
     with pytest.raises(ValueError, match="cuda"):
-        K.segment_softmax_csr_cuda(mat.row_ptr, scores, T)
+        K.softmax_stats_cuda(mat.row_ptr, scores, T)
     with pytest.raises(ValueError, match="cuda"):
-        K.segment_softmax_csr_backward_cuda(mat.row_ptr, scores, g, T)
+        K.softmax_apply_cuda(mat.row_ptr, scores, stats, stats, T)
+    with pytest.raises(ValueError, match="cuda"):
+        K.softmax_stats_backward_cuda(mat.row_ptr, scores, g)
+    with pytest.raises(ValueError, match="cuda"):
+        K.softmax_apply_backward_cuda(mat.row_ptr, scores, g, stats, T)
     with pytest.raises(ValueError, match="cuda or cpu"):
         K.sddmm_csr(mat.row_ptr, mat.col, qk.to("meta"), v)
     with pytest.raises(ValueError, match="cuda or cpu"):
         K.segment_softmax_csr(mat.row_ptr.to("meta"), scores, T)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        K.softmax_apply(mat.row_ptr, scores, stats.to("meta"), stats, T)
     with pytest.raises(ValueError, match="heads"):
         K._check_sddmm(mat.row_ptr, mat.col, torch.zeros(N_ROWS, 9, 8), v, None)
     with pytest.raises(ValueError, match="n_rows"):
         K._check_sddmm(mat.row_ptr, mat.col, torch.zeros(N_ROWS + 1, 4, 8), v, None)
     with pytest.raises(ValueError, match="b must"):
         K._check_sddmm(mat.row_ptr, mat.col, qk, v, torch.zeros(N_ROWS, 3))
+    with pytest.raises(ValueError, match="h <= 8"):
+        K._check_edges("scores", torch.zeros(mat.nnz, 9))
+    with pytest.raises(ValueError, match="n_rows, h"):
+        K._check_rows(N_ROWS, 4, m=torch.zeros(N_ROWS + 1, 4))

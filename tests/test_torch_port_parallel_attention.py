@@ -4,7 +4,7 @@ its gradients in the folded query, Wk, bk and the value table against
 ``make_edge_sharded_attention`` under ``shard_map`` and ``jax.grad`` (as
 ``tests/test_edge_sharded_attention.py:77-130`` holds JAX's to its single
 device), the shard's attention against the port's single-device
-``fused_kv_attention``, the collectives of one forward, and
+``fused_kv_attention``, the collectives of one forward and of its backward, and
 ``make_edge_sharded_att_igcn_step`` for 3 Adam steps at S = 1, 2, 4 with
 JAX's batches handed in, and its first step's gradients of every parameter
 (Wq and Wk get theirs through ``collectives.shared``) against JAX's, read
@@ -123,7 +123,9 @@ def attention_ranks(inputs, step_inputs):
     qb = torch.einsum("nhd,hd->nh", q, bk_s.reshape(h, dh))
     agg = edge_sharded_attention(mat, qk, qb, v, TEMPERATURE, group)
     out["collectives"] = dict(counts.by_kind)
+    reset_collective_counts()
     (agg * local_rows(t["w"], mesh, n_rows=mat.n_rows_pad)).sum().backward()
+    out["backward_collectives"] = dict(counts.by_kind)
     out.update(out=agg.detach().numpy(), dq=q.grad.numpy(), dv=v.grad.numpy(), dwk=wk.grad.numpy(),
                dbk=bk.grad.numpy())
     with torch.no_grad():
@@ -244,6 +246,16 @@ def test_sharded_attention_collectives(runs, S):
     all-reduce, the row sums' all-reduce and the output's reduce-scatter."""
     want = {"all_gather": 2, "all_reduce_max": 1, "all_reduce": 1, "reduce_scatter": 1}
     assert all(r["collectives"] == want for r in runs[S])
+
+
+@pytest.mark.parametrize("S", WORLDS)
+def test_sharded_attention_backward_collectives(runs, S):
+    """Its backward: the output's cotangent all-gathered, one all-reduce of
+    the softmax's row statistics c (the softmax's only collective), the
+    folded query's two gradients reduce-scattered and one all-reduce of the
+    shared key weights' gradients; no MAX."""
+    want = {"all_gather": 1, "all_reduce_max": 0, "all_reduce": 2, "reduce_scatter": 2}
+    assert all(r["backward_collectives"] == want for r in runs[S])
 
 
 def _jax_att_step(model_inputs, S, capture=False):
