@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""AttIGCN's row softmax and training step on one CUDA card, for comparing
-two checkouts, on the Gowalla-scale synthetic set of ``chip_smoke.py``
-(AttIGCN at IGCN's grid width, 4 heads, batch 2,048):
+"""AttIGCN's attention kernels and training step on one CUDA card, for
+comparing two checkouts, on the Gowalla-scale synthetic set of
+``chip_smoke.py`` (AttIGCN at IGCN's grid width, 4 heads, batch 2,048):
 
     python3 /path/to/chip_compare.py      # from the root of a checkout
 
@@ -10,11 +10,17 @@ path), so two commits compare by running one copy of the script from the
 root of each, in turns on one card (parent, change, change, parent). It
 prints, for the checkout:
 
-- ``segment_softmax_csr`` and ``segment_softmax_csr_backward`` on the
-  feature matrix (random scores from the seed, T as AttIGCN's), through
-  their public entry points: the device time of each kernel they launch
-  (torch.profiler, mean over 20 calls) and the median of 15 windows of 10
-  calls (CUDA events);
+- the scores ``sddmm_csr`` at 4 heads (the folded query of the model's
+  random weights) and at one head (d(values): a random cotangent), the
+  scores' gradient (``torch.autograd.grad`` through ``attention_scores``
+  from a random cotangent: the checkout's ``_Scores.backward``, whatever
+  it launches), ``segment_softmax_csr`` and
+  ``segment_softmax_csr_backward`` on the feature matrix (random scores
+  from the seed, T as AttIGCN's), through their public entry points: the
+  device time of each kernel they launch (torch.profiler, mean over 20
+  calls) and the median of 15 windows of 10 calls (CUDA events); and the
+  SpMM's chunk kernel on the feature matrix at d 64, whose gathers (nnz x
+  64 x 4 B) over its device time give the card's L2 gather rate;
 - one training step, single-device and edge mode at mesh (1, 1): after 3
   steps, 3 profiled steps (device launches, device busy ms, host ms of
   each) and the median of 20 steps on the host clock, each ended by a
@@ -35,7 +41,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from inductive_recommendation_tpu_torch import get_model, get_trainer  # noqa: E402
 from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset  # noqa: E402
-from inductive_recommendation_tpu_torch.ops import attention_csr  # noqa: E402
+from inductive_recommendation_tpu_torch.ops import _build, attention_csr  # noqa: E402
+from inductive_recommendation_tpu_torch.ops.attention_spmm import folded_query  # noqa: E402
+from inductive_recommendation_tpu_torch.ops.csr_spmm import spmm_csr_cuda  # noqa: E402
 from inductive_recommendation_tpu_torch.parallel import init_distributed, make_mesh  # noqa: E402
 
 N_USERS, N_ITEMS, N_INTER, SEED = 29858, 40981, 1_200_000, 0  # chip_smoke.py's set
@@ -71,8 +79,10 @@ def profiled(step):
 
 
 def kernel_times(fn, calls=20, windows=15, inner=10):
-    """({kernel name: mean device ms over ``calls`` profiled calls}, the
-    median per-call ms of ``windows`` windows of ``inner`` calls)."""
+    """({kernel name: mean device ms a launch over ``calls`` profiled
+    calls}, {kernel name: (device ms, launches) a call}, the median per-call
+    ms of ``windows`` windows of ``inner`` calls). Launches a call that are
+    not whole show that the profiler dropped events."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -95,32 +105,64 @@ def kernel_times(fn, calls=20, windows=15, inner=10):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-    return {k: round(total[k] / seen[k], 5) for k in total}, float(np.median(times))
+    per_call = {k: (round(total[k] / calls, 5), seen[k] / calls) for k in total}
+    return {k: round(total[k] / seen[k], 5) for k in total}, per_call, float(np.median(times))
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_compare.py needs a CUDA card")
     here = os.path.basename(os.getcwd())
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"{here} build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}", flush=True)
+    for name, text in logs.items():
+        kernel = ""
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                kernel = re.sub(r".*?(sddmm\w*|softmax\w*|spmm\w*).*", r"\1", line)
+            elif "Used" in line and kernel.startswith("sddmm"):
+                print(f"{here} build {name} {kernel}: {line.split(':', 1)[-1].strip()}", flush=True)
     with tempfile.TemporaryDirectory() as work:
         init_distributed(init_method="file://" + os.path.join(work, "pg"))
         ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=SEED)
         model = get_model(CONFIG, ds)
-        att = model.att_feat
-        gen = torch.Generator(device=att.row_ptr.device).manual_seed(SEED)
-        scores = torch.randn(att.nnz, CONFIG["n_heads"], generator=gen, device=att.row_ptr.device) * 30.0
-        g = torch.randn(att.nnz, generator=gen, device=att.row_ptr.device)
-        temp = model.temperature
+        att, d, h = model.att_feat, CONFIG["embedding_size"], CONFIG["n_heads"]
+        dev = att.row_ptr.device
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        scores = torch.randn(att.nnz, h, generator=gen, device=dev) * 30.0
+        g = torch.randn(att.nnz, generator=gen, device=dev)
+        g_s = torch.randn(att.nnz, h, generator=gen, device=dev) * 1e-3
+        g_rows = torch.randn(att.n_rows, 1, d, generator=gen, device=dev)
+        temp, params = model.temperature, model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+        emb = params["embedding"][: model.feat_n_cols].detach()
+        rp, col = att.row_ptr, att.col
         with torch.no_grad():
-            p, _ = attention_csr.segment_softmax_csr(att.row_ptr, scores, temp)
+            q = (spmm_csr_cuda(model.feat, emb) @ params["weight_q.w"] + params["weight_q.b"]).reshape(-1, h, d)
+            qk, qb = (t.contiguous() for t in folded_query(q, params["weight_k.w"], params["weight_k.b"], d))
+        qk_req, qb_req = qk.clone().requires_grad_(True), qb.clone().requires_grad_(True)
+        out = attention_csr.attention_scores(att, qk_req, qb_req, emb)
+        with torch.no_grad():
+            p, _ = attention_csr.segment_softmax_csr(rp, scores, temp)
             for name, fn in (
-                ("segment_softmax_csr", lambda: attention_csr.segment_softmax_csr(att.row_ptr, scores, temp)),
+                ("sddmm_csr h 4", lambda: attention_csr.sddmm_csr(rp, col, qk, emb, qb)),
+                ("sddmm_csr h 1", lambda: attention_csr.sddmm_csr(rp, col, g_rows, emb, route="attention_d_values")),
+                ("scores gradient", lambda: torch.autograd.grad(out, [qk_req, qb_req], g_s, retain_graph=True)),
+                ("spmm_csr feat d 64", lambda: spmm_csr_cuda(att, emb)),
+                ("segment_softmax_csr", lambda: attention_csr.segment_softmax_csr(rp, scores, temp)),
                 ("segment_softmax_csr_backward",
-                 lambda: attention_csr.segment_softmax_csr_backward(att.row_ptr, p, g, temp)),
+                 lambda: attention_csr.segment_softmax_csr_backward(rp, p, g, temp)),
             ):
-                device, windowed = kernel_times(fn)
-                print(f"{here} {name}: device ms by kernel {device} (total {sum(device.values()):.5f}); windows of "
-                      f"10 calls {windowed:.5f} ms", flush=True)
+                device, per_call, windowed = kernel_times(fn)
+                print(f"{here} {name}: device ms a launch by kernel {device}; a call: (device ms, launches) by "
+                      f"kernel {per_call}, device ms {sum(v[0] for v in per_call.values()):.5f}; windows of 10 calls "
+                      f"{windowed:.5f} ms", flush=True)
+                if name.startswith("spmm"):
+                    chunk_ms = device.get("spmm_chunk_kernel")
+                    gathered = att.nnz * d * 4
+                    print(f"{here} L2 gather rate: {gathered / 1e6:.1f} MB gathered by spmm_chunk_kernel in "
+                          f"{chunk_ms} ms = {gathered / chunk_ms / 1e9:.3f} TB/s", flush=True)
+        del out, qk_req, qb_req
         single = get_trainer(TRAINER, ds, model)
         edge = get_trainer(TRAINER, ds, model, mesh=make_mesh(1, 1), mesh_mode="edge")
         for name, trainer in (("single", single), ("edge", edge)):

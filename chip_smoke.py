@@ -86,20 +86,23 @@ Phases, each of which raises on failure (the exit code is then not 0):
    counts and times of phase 9 (b) (``STEP_LAUNCHES``). (a) AttIGCN at
    IGCN's grid width (4 heads) with the IGCN row's trainer: the attention
    kernels of ``ops/csrc/attention_csr.cu`` on small edge cases (runs of
-   empty rows, rows cut across many softmax chunks, the 12,745-edge row,
-   rows cut exactly at chunk ends, a row of -inf scores, 1-8 heads, the
-   16-byte and the scalar widths and alignments) and on its feature
-   matrix, each against its float64 plain version and bitwise repeatable,
-   timed beside the plain version and the library call (``sddmm_csr`` with
-   4 heads, the scores, entry by entry within ``check_sddmm``'s rounding
-   bound, beside the [nnz, h, dv] gathers it replaced; with one head,
-   d(values), beside ``torch.sparse.sampled_addmm``; the softmax passes
+   empty rows, rows cut across many chunks, the 12,745-edge row, rows cut
+   exactly at chunk ends, a run of one-edge rows, a row of -inf scores, 1-8
+   heads, the 16-byte and the scalar widths and alignments) and on its
+   feature matrix, each against its float64 plain version and bitwise
+   repeatable, timed beside the plain version and the library call
+   (``sddmm_csr`` with 4 heads, the scores, entry by entry within
+   ``check_sddmm``'s rounding bound, beside ``torch.sparse.sampled_addmm``
+   batched over the heads; with one head, d(values), beside the same call
+   unbatched; ``sddmm_csr_backward``, the scores' gradient, entry by entry
+   within ``check_product``'s bound at its chunking, beside
+   ``torch.sparse.mm`` once a head and the path it replaced, one SpMM a
+   head on [table | 1 | 0 0 0] with a cat and a stack; the softmax passes
    ``softmax_stats`` (m exactly, s within 1e-5 of max(1, s) a row),
    ``softmax_apply`` (within 1e-5 * max(1, max |float64|)) and their
    backward modes (c likewise, g_s within 1e-5 of max |float64|), each
    timed alone; ``segment_softmax_csr``, the two passes, beside
-   ``segment_softmax``, and its backward beside autograd's), a
-   query-gradient product, the
+   ``segment_softmax``, and its backward beside autograd's), the
    product with the model's attention as edge values and its transpose
    against float64, d(values) within 1e-5 of max |float64|, ``get_rep``
    against the float64 plain chain; the attention's device time alone with
@@ -307,12 +310,12 @@ STEP_LAUNCHES = {
     "IMCGAE": {"forward": 12},
     "IDCF_LGCN": {"forward": 14},
     # the query's feat product and the adjacency's 3 + 3; the aggregation and
-    # its backward; the query's gradient, one product a head; the attention
-    # kernels: the scores, d(values), the softmax's statistics (chunks and
-    # cut rows) and apply passes, forward and backward
-    "AttIGCN": {"forward": 14, "attention": 2, "attention_transpose": 2, "attention_dq": 8,
-                "sddmm_csr/attention": 1, "sddmm_csr/attention_d_values": 1, "softmax_stats/attention": 2,
-                "softmax_apply/attention": 1, "softmax_stats_backward/attention": 2,
+    # its backward; the attention kernels: the scores, their gradient (chunks
+    # and cut rows), d(values), the softmax's statistics (chunks and cut
+    # rows) and apply passes, forward and backward
+    "AttIGCN": {"forward": 14, "attention": 2, "attention_transpose": 2,
+                "sddmm_csr/attention": 1, "sddmm_csr_backward/attention": 2, "sddmm_csr/attention_d_values": 1,
+                "softmax_stats/attention": 2, "softmax_apply/attention": 1, "softmax_stats_backward/attention": 2,
                 "softmax_apply_backward/attention": 1},
     "SGL": {"forward": 12, "view": 24},
     "HALF": {"forward": 12, "view": 12},
@@ -371,8 +374,10 @@ SOFTMAX_OPS_PER_ENTRY = 10
 SOFTMAX_BACKWARD_OPS_PER_ENTRY = 5
 SOFTMAX_STATS_OPS_PER_ENTRY, SOFTMAX_APPLY_OPS_PER_ENTRY = 5, 5
 SOFTMAX_STATS_BACKWARD_OPS_PER_ENTRY, SOFTMAX_APPLY_BACKWARD_OPS_PER_ENTRY = 2, 3
-# the kernels of the softmax passes, by the names the profiler gives them
+# the kernels of the softmax passes and of the scores and their gradient, by
+# the names the profiler gives them
 SOFTMAX_KERNEL_NAMES = ("softmax_stats_chunk_kernel", "softmax_stats_carry_kernel", "softmax_apply_kernel")
+SDDMM_KERNEL_NAMES = ("sddmm_vec_kernel", "sddmm_scalar_kernel", "sddmm_bwd_chunk_kernel", "sddmm_bwd_carry_kernel")
 # phase 13: AttIGCN's edge losses at world 1 are the single-device trainer's
 # bit for bit where the shard's CSR is the whole layout, else within this
 # (the largest difference any family's edge run has shown)
@@ -567,7 +572,7 @@ def plain_product(blocks, x, drop=None, magnitude=False) -> torch.Tensor:
     return torch.cat(outs)
 
 
-def check_product(what, blocks, x, out, drop=None, other=None, extra_roundings=0) -> dict:
+def check_product(what, blocks, x, out, drop=None, other=None, extra_roundings=0, chunk=EDGES_PER_CHUNK) -> dict:
     """Holds the kernel's ``out`` = A @ ``x`` (under ``drop``) against the
     plain version in float64, block of rows by block of rows, entry by entry:
 
@@ -576,9 +581,9 @@ def check_product(what, blocks, x, out, drop=None, other=None, extra_roundings=0
     the worst-case rounding error of a sum whose every term passes through at
     most h_r roundings (Higham, Accuracy and Stability of Numerical
     Algorithms, 2nd ed., section 4.2). The kernel rounds a term of row r at
-    most min(deg_r, E) times in its chunk's fmas (E = EDGES_PER_CHUNK), 5 in
-    the lanes' shuffle adds and deg_r // E + 1 in the carry adds: h_r =
-    min(deg_r, E) + deg_r // E + 8, 2 to spare. A row whose only edges have x
+    most min(deg_r, E) times in its chunk's fmas (E = ``chunk``, the SpMM's
+    EDGES_PER_CHUNK by default), 5 in the lanes' shuffle adds and deg_r // E
+    + 1 in the carry adds: h_r = min(deg_r, E) + deg_r // E + 8, 2 to spare. A row whose only edges have x
     = 0 (IMCGAE's pad column) must come out exactly 0. A wrong or lost edge
     moves an entry by one term, about 1/deg_r of (|A| @ |x|): the check sees
     it while deg_r * gamma(h_r) < 1 (``limit_over_mean_term``). A sum of
@@ -593,7 +598,7 @@ def check_product(what, blocks, x, out, drop=None, other=None, extra_roundings=0
     for r0, r1, m in blocks:
         ref = plain_product([(r0, r1, m)], x64, drop)
         deg = torch.diff(m.row_ptr).double()[:, None]
-        h = torch.clamp(deg, max=EDGES_PER_CHUNK) + torch.div(deg, EDGES_PER_CHUNK, rounding_mode="floor") + 8
+        h = torch.clamp(deg, max=chunk) + torch.div(deg, chunk, rounding_mode="floor") + 8
         h = h + extra_roundings
         gamma = h * U_FP32 / (1.0 - h * U_FP32)
         limit = gamma * plain_product([(r0, r1, m)], x64, drop, magnitude=True)
@@ -684,6 +689,30 @@ def kernel_device_ms(fn, calls=20, kernels=("spmm_chunk_kernel", "spmm_carry_ker
         if total:
             return {k: total[k] / seen[k] for k in total}
     return None
+
+
+def device_ms_per_call(fn, calls=20) -> tuple[float, float] | None:
+    """(device ms, device launches) of one call of ``fn``, every kernel it
+    launches summed, from ``torch.profiler`` over ``calls`` calls after one
+    warm-up; measured again once when the launches a call come out
+    fractional (the profiler dropped events); None when it saw no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    res = None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events() if e.device_type == DeviceType.CUDA]
+        res = (sum(spans) / 1e3 / calls, len(spans) / calls) if spans else None
+        if res is not None and len(spans) % calls == 0:
+            break
+    return res
 
 
 def measure_spmm(name, mat, x, drop=None) -> dict:
@@ -1460,6 +1489,34 @@ def check_sddmm(what, mat, a, x, b, out) -> dict:
     return {"max_abs_err": err.max().item(), "max_err_over_limit": ratio.max().item()}
 
 
+def sddmm_backward_bound_ms(mat, h, dv) -> tuple[float, str]:
+    """The scores' gradient: the CSR's row_ptr and col, g [nnz, h] and x
+    [n_cols, dv] read once, d_a [n_rows, h, dv] and d_b [n_rows, h] written
+    once; 2 h dv + h operations an edge."""
+    n_bytes = 4 * (mat.n_rows + 1 + mat.nnz + mat.nnz * h + mat.n_cols * dv + mat.n_rows * h * dv + mat.n_rows * h)
+    return bound_ms(n_bytes, (2.0 * dv + 1.0) * h * mat.nnz)
+
+
+def check_sddmm_backward(what, mat, g, x, out) -> dict:
+    """Holds the scores' gradient ``out`` = (d_a, d_b) to its float64 plain
+    version entry by entry, head by head: d_a[:, j] as the product of the CSR
+    with g[:, j] as edge values and x, d_b[:, j] as its product with a
+    column of ones, each within ``check_product``'s bound at the kernel's
+    chunking (h_r = min(deg_r, 256) + deg_r // 256 + 8: chunks of
+    SOFTMAX_CHUNK edges)."""
+    d_a, d_b = out
+    ones = x.new_ones(x.shape[0], 1)
+    res = {"max_abs_err": 0.0, "max_err_over_limit": 0.0}
+    for j in range(g.shape[1]):
+        mj = dataclasses.replace(mat, val=g[:, j].contiguous())
+        for name, xs, o in (("d_a", x, d_a[:, j]), ("d_b", ones, d_b[:, j : j + 1])):
+            r = check_product(f"{what} {name} head {j}", row_blocks(mj, int(xs.shape[1])), xs, o,
+                              chunk=attention_csr.SOFTMAX_CHUNK)
+            res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+            res["max_err_over_limit"] = max(res["max_err_over_limit"], r["max_err_over_limit"])
+    return res
+
+
 def measure_attention_kernel(name, kernel, plain, library, check, bound) -> dict:
     """One attention kernel on the card: two launches bitwise equal, held to
     its float64 plain version by ``check(out)``; its time, the plain
@@ -1481,7 +1538,7 @@ def measure_attention_kernel(name, kernel, plain, library, check, bound) -> dict
     if library is None:
         row["library_ms"] = row["library_ms_windowed"] = None
     row["bound_ms"], row["bound_by"] = bound
-    device = kernel_device_ms(kernel, kernels=("sddmm",) + SOFTMAX_KERNEL_NAMES)
+    device = kernel_device_ms(kernel, kernels=SDDMM_KERNEL_NAMES + SOFTMAX_KERNEL_NAMES)
     row["kernel_device_ms"] = device
     row["kernel_device_ms_total"] = None if device is None else sum(device.values())
     row["clocks_after"] = card_clocks()
@@ -1547,13 +1604,15 @@ def misaligned(t):
 def check_attention_edge_cases(rng) -> float:
     """The attention kernels on small CSRs: a run of 3,000 empty rows, rows
     cut across many softmax chunks (5,000 and 1,100 edges), one row, the
-    feature matrix's 12,745-edge row, rows cut exactly at the softmax's chunk
-    ends, each with one row of -inf scores. ``sddmm_csr`` on the first two
-    at h in {1, 2, 3, 4, 8} and widths of the 16-byte path (8, 16, 64, 128)
-    and of the scalar one (37, 200, and 64 with x off 16-byte alignment),
-    within ``check_sddmm``'s bound, twice bitwise equal; the softmax passes
-    on all at h 1-8, aligned and not (the scalar path), against their
-    float64 plain versions (:func:`check_softmax_passes`)."""
+    feature matrix's 12,745-edge row, rows cut exactly at the chunk ends
+    (the softmax passes' and ``sddmm_csr``'s), a run of one-edge rows, each
+    with one row of -inf scores. ``sddmm_csr`` (within ``check_sddmm``'s
+    bound) and ``sddmm_csr_backward`` (``check_sddmm_backward``) on all at h
+    in {1, 2, 3, 4, 8} and widths of the 16-byte paths (8, 16, 64, 128) and of the scalar
+    ones (37, 200, and 64 with every operand off 16-byte alignment), twice
+    bitwise equal; the softmax passes on all at h 1-8, aligned and not (the
+    scalar path), against their float64 plain versions
+    (:func:`check_softmax_passes`)."""
     worst = 0.0
     chunk = attention_csr.SOFTMAX_CHUNK
     cases = [
@@ -1562,23 +1621,29 @@ def check_attention_edge_cases(rng) -> float:
                                                       np.zeros(50, np.int64)]), 900),
         ("one row", np.array([3]), 5),
         ("a 12,745-edge row", np.concatenate([[12745], rng.integers(0, 30, 200)]), 13000),
-        ("rows cut at chunk ends", np.array([chunk, chunk, 2 * chunk, 1, chunk - 1, 0, 0, chunk, 3, 5]), 600),
+        ("rows cut at chunk ends", np.array([chunk, chunk, 2 * chunk, 1, chunk - 1, 0, 0, chunk // 2, chunk // 2,
+                                             chunk, 3, 5]), 600),
+        ("a run of one-edge rows", np.concatenate([[7], np.ones(3 * chunk, np.int64), [chunk + 3], np.ones(100, np.int64)]),
+         700),
     ]
-    for i, (name, degrees, n_cols) in enumerate(cases):
+    for name, degrees, n_cols in cases:
         row = rows_of_degrees(degrees)
         mat = build_csr_spmm(row, rng.integers(0, n_cols, len(row)), np.ones(len(row)), (len(degrees), n_cols),
                              device="cuda")
         rp, col = mat.row_ptr, mat.col
-        for h in (1, 2, 3, 4, 8) if i < 2 else ():
+        for h in (1, 2, 3, 4, 8):
             for dv, aligned in ((8, True), (16, True), (64, True), (128, True), (37, True), (200, True), (64, False)):
                 a = torch.randn(mat.n_rows, h, dv, device="cuda")
                 x = torch.randn(n_cols, dv, device="cuda")
-                if not aligned:
-                    x = misaligned(x)
                 b = torch.randn(mat.n_rows, h, device="cuda")
-                out = twice(f"{name}: sddmm_csr h {h} dv {dv}", lambda: attention_csr.sddmm_csr_cuda(rp, col, a, x, b))
-                worst = max(worst, check_sddmm(f"{name} sddmm_csr h {h} dv {dv} aligned {aligned}", mat, a, x, b,
-                                               out)["max_abs_err"])
+                g = torch.randn(mat.nnz, h, device="cuda")
+                if not aligned:
+                    a, x, b, g = (misaligned(t) for t in (a, x, b, g))
+                what = f"{name}: h {h} dv {dv} aligned {aligned}"
+                out = twice(f"{what} sddmm_csr", lambda: attention_csr.sddmm_csr_cuda(rp, col, a, x, b))
+                worst = max(worst, check_sddmm(f"{what} sddmm_csr", mat, a, x, b, out)["max_abs_err"])
+                out = twice(f"{what} sddmm_csr_backward", lambda: attention_csr.sddmm_csr_backward_cuda(rp, col, g, x))
+                worst = max(worst, check_sddmm_backward(f"{what} sddmm_csr_backward", mat, g, x, out)["max_abs_err"])
         # the last row of more than one edge gets -inf scores
         neg = len(degrees) - 1 - int(np.argmax(degrees[::-1] > 1)) if len(degrees) > 1 else None
         for h in range(1, attention_csr.MAX_HEADS + 1):
@@ -1599,15 +1664,18 @@ def check_attention_kernels(model, params, rng) -> dict:
     (:func:`check_attention_edge_cases`), then on the model's feature matrix
     at its heads and width, each against its float64 plain version, bitwise
     repeatable, timed beside the plain version and the library call: K1 with
-    4 heads (the scores: qk, qb and the table, ``check_sddmm``) and with one
+    4 heads (the scores: qk, qb and the table, ``check_sddmm``; library
+    ``torch.sparse.sampled_addmm`` batched over the heads) and with one
     (d(values): a cotangent and the table; library ``torch.sparse.
     sampled_addmm``), K2 (p and attn within 1e-5 * max(1, max |float64|))
     and K3 (within 1e-5 of max |float64|; library: autograd's backward
-    through ``segment_softmax``). Then the product with the attention as
-    edge values and its transpose against float64, a query-gradient product
-    (head 0's score cotangent as edge values on [table | 1 | 0 0 0]),
-    d(values) through the autograd Function against float64, and
-    ``get_rep`` against the float64 plain chain."""
+    through ``segment_softmax``), the scores' gradient (within
+    ``check_sddmm_backward``'s bound; library: ``torch.sparse.mm`` once a
+    head; beside it the path it replaced, one SpMM a head on [table | 1 |
+    0 0 0] with a cat and a stack). Then the product with the attention as
+    edge values and its transpose against float64, d(values) through the
+    autograd Function against float64, and ``get_rep`` against the float64
+    plain chain."""
     att, d, h, temp = model.att_feat, model.embedding_size, model.n_heads, model.temperature
     rp, col = att.row_ptr, att.col
     emb = params["embedding"][: model.feat_n_cols].detach()
@@ -1617,16 +1685,24 @@ def check_attention_kernels(model, params, rng) -> dict:
         q = linear(params, "weight_q", spmm_csr_cuda(model.feat, emb)).reshape(-1, h, d)
         qk, qb = (t.contiguous() for t in folded_query(q, params["weight_k.w"], params["weight_k.b"], d))
         edge_rows, cols = att.edge_rows().long(), col.long()
+        # the library call: sampled_addmm batched over the heads, qb[row] as
+        # the sampled input's values (beta 1)
+        heads = torch.sparse_csr_tensor(rp.expand(h, -1).contiguous(), col.expand(h, -1).contiguous(),
+                                        qb.index_select(0, edge_rows).t().contiguous(), size=(h, *att.shape))
+        qk_h, emb_t = qk.transpose(0, 1).contiguous(), emb.t().expand(h, -1, -1)
         rows["sddmm_scores"] = measure_attention_kernel(
             f"sddmm_csr h {h} (the scores)",
             lambda: attention_csr.sddmm_csr_cuda(rp, col, qk, emb, qb),
             lambda: attention_csr.sddmm_csr_reference(rp, col, qk, emb, qb),
-            # the torch ops it replaces: the [nnz, h, dv] gather of qk and the row dots
-            lambda: torch.einsum("ehv,ev->eh", qk.index_select(0, att.edge_rows().long()), emb.index_select(0, cols))
-            + qb.index_select(0, edge_rows),
+            lambda: torch.sparse.sampled_addmm(heads, qk_h, emb_t),
             lambda out: check_sddmm("sddmm_csr scores", att, qk, emb, qb, out),
             sddmm_bound_ms(att, h, d, True),
         )
+        lib = torch.sparse.sampled_addmm(heads, qk_h, emb_t).values().t()
+        rows["sddmm_scores"]["library_max_abs_err"] = (
+            lib.double() - attention_csr.sddmm_csr_reference(rp, col, qk.double(), emb.double(), qb.double())
+        ).abs().max().item()
+        del heads, lib
         g3 = g[:, None, :]
         ones = torch.sparse_csr_tensor(rp, col, torch.ones(att.nnz, device=emb.device), size=att.shape)
         rows["sddmm_d_values"] = measure_attention_kernel(
@@ -1706,9 +1782,40 @@ def check_attention_kernels(model, params, rng) -> dict:
         )
         del s_req, a_req
         g_s = attention_csr.segment_softmax_csr_backward(rp, p, g_attn, temp)
-        v1 = torch.cat([emb, emb.new_ones(emb.shape[0], 1), emb.new_zeros(emb.shape[0], 3)], dim=1).contiguous()
-        rows["attention_dq"] = measure_spmm(
-            "attention_dq (head 0)", dataclasses.replace(att, val=g_s[:, 0].contiguous(), route="attention_dq"), v1)
+
+        def earlier_path():
+            """The scores' gradient as it was: one SpMM a head with g_s[:, j]
+            as edge values on [table | 1 | 0 0 0], a cat and a stack."""
+            v1 = torch.cat([emb, emb.new_ones(emb.shape[0], 1), emb.new_zeros(emb.shape[0], 3)], dim=1)
+            dq = torch.stack([spmm_csr_cuda(att, v1, val=g_s[:, j].contiguous()) for j in range(h)], dim=1)
+            return dq[:, :, :d], dq[:, :, d]
+
+        head_mats = [torch.sparse_csr_tensor(rp, col, g_s[:, j].contiguous(), size=att.shape) for j in range(h)]
+        rows["sddmm_backward"] = measure_attention_kernel(
+            f"sddmm_csr_backward h {h} (the scores' gradient)",
+            lambda: attention_csr.sddmm_csr_backward_cuda(rp, col, g_s, emb),
+            lambda: attention_csr.sddmm_csr_backward_reference(rp, col, g_s, emb),
+            lambda: [torch.sparse.mm(m, emb) for m in head_mats],
+            lambda out: check_sddmm_backward("sddmm_csr_backward", att, g_s, emb, out),
+            sddmm_backward_bound_ms(att, h, d),
+        )
+        del head_mats
+        earlier = earlier_path()
+        kernel_out = attention_csr.sddmm_csr_backward_cuda(rp, col, g_s, emb)
+        rows["sddmm_backward"]["earlier_path_max_abs_diff"] = max(
+            (e - k).abs().max().item() for e, k in zip(earlier, kernel_out))
+        (rows["sddmm_backward"]["earlier_path_ms_windowed"],) = windowed_ms(earlier_path)
+        rows["sddmm_backward"]["earlier_path_ms"] = median_ms(earlier_path)
+        rows["sddmm_backward"]["earlier_path_device"] = device_ms_per_call(earlier_path)
+        rows["sddmm_backward"]["device_per_call"] = device_ms_per_call(
+            lambda: attention_csr.sddmm_csr_backward_cuda(rp, col, g_s, emb))
+        log(f"the scores' gradient as it was (4 SpMM on [table | 1 | 0 0 0], cat, stack): "
+            f"{rows['sddmm_backward']['earlier_path_ms']:.4f} ms single, "
+            f"{rows['sddmm_backward']['earlier_path_ms_windowed']:.4f} windowed, (device ms, launches) a call "
+            f"{rows['sddmm_backward']['earlier_path_device']} against the kernel's "
+            f"{rows['sddmm_backward']['device_per_call']}; the two differ by at most "
+            f"{rows['sddmm_backward']['earlier_path_max_abs_diff']:.3g}")
+        del earlier, kernel_out
         rows["attention"] = measure_spmm("attention", dataclasses.replace(att, val=attn), emb)
         rows["attention_transpose"] = measure_spmm(
             "attention^T", dataclasses.replace(att.T, val=attn[att.t_pos].contiguous()), g)
@@ -1762,6 +1869,40 @@ def attention_device(model, params, rng) -> dict:
             b = device_breakdown(fwd_bwd, top=12)
         out[key] = None if b is None else {"host_ms": b[0], "device_busy_ms": b[1], "device_launches": b[3],
                                            "kernels": b[2]}
+    return out
+
+
+def folded_query_gemms(model, params, rng) -> dict:
+    """Each of the folded query's einsums (``ops.attention_spmm.
+    folded_query``) alone on the model's shapes, forward and backward (from
+    a random cotangent), under ``torch.profiler``: its device kernels by
+    name with their ms, and its operands' shapes. Measured, not changed:
+    which one is the step's largest cuBLAS GEMM."""
+    d, h = model.embedding_size, model.n_heads
+    emb = params["embedding"][: model.feat_n_cols].detach()
+    with torch.no_grad():
+        q0 = linear(params, "weight_q", spmm_csr_cuda(model.feat, emb)).reshape(-1, h, d)
+    q = q0.clone().requires_grad_(True)
+    w_k = params["weight_k.w"].detach().clone().requires_grad_(True)
+    b_k = params["weight_k.b"].detach().clone().requires_grad_(True)
+    wk3, bk2 = w_k.reshape(d, h, d), b_k.reshape(h, d)
+    qk = torch.einsum("nhd,vhd->nhv", q, wk3)
+    qb = torch.einsum("nhd,hd->nh", q, bk2)
+    g_qk = torch.as_tensor(rng.normal(0.0, 1e-3, tuple(qk.shape)), dtype=torch.float32, device=q.device)
+    g_qb = torch.as_tensor(rng.normal(0.0, 1e-3, tuple(qb.shape)), dtype=torch.float32, device=q.device)
+    parts = {
+        "qk forward: einsum('nhd,vhd->nhv', q, Wk)": lambda: torch.einsum("nhd,vhd->nhv", q, wk3),
+        "qb forward: einsum('nhd,hd->nh', q, bk)": lambda: torch.einsum("nhd,hd->nh", q, bk2),
+        "qk backward, d(q) alone": lambda: torch.autograd.grad(qk, [q], g_qk, retain_graph=True),
+        "qk backward, d(Wk) alone": lambda: torch.autograd.grad(qk, [w_k], g_qk, retain_graph=True),
+        "qb backward: d(q), d(bk)": lambda: torch.autograd.grad(qb, [q, b_k], g_qb, retain_graph=True),
+    }
+    out = {"shapes": {"q": list(q.shape), "Wk": [d, h, d], "bk": [h, d], "qk": list(qk.shape)}}
+    for name, fn in parts.items():
+        fn()
+        b = device_breakdown(fn, top=4) or device_breakdown(fn, top=4)  # once more if no device event came
+        out[name] = None if b is None else {"device_busy_ms": b[1], "kernels": b[2]}
+        log(f"folded query, {name}: {out[name]}")
     return out
 
 
@@ -1833,6 +1974,7 @@ def last_models_phase(ds, card, rng) -> dict:
     t = get_trainer(dict(TRAINER_CONFIG, n_epochs=1), ds, get_model(ATT_CONFIG, ds))
     rows.update(check_attention_kernels(t.model, t.params, rng))
     att_dev = attention_device(t.model, t.params, rng)
+    att_dev["folded_query_gemms"] = folded_query_gemms(t.model, t.params, rng)
     att = zoo_model_run("AttIGCN", t, ds, ev, card, t.batch_size, keep_losses=True)
     losses = np.concatenate(att.pop("step_losses"))
     att["step_peak_bytes"], att["step_added_bytes"] = step_memory(t)
@@ -2726,8 +2868,8 @@ def families_phase(ds, card, rng, mesh) -> tuple:
         del single, edge
     out["edge_launches_run"], out["edge_collectives_run"] = run_routes, run_kinds
     for route in ("edge_shard_view", "edge_shard_view_transpose", "edge_shard_aug_feat_dropout",
-                  "edge_shard_attention", "edge_shard_attention_dq", "sddmm_csr/edge_shard_attention",
-                  "sddmm_csr/edge_shard_attention_d_values",
+                  "edge_shard_attention", "sddmm_csr/edge_shard_attention",
+                  "sddmm_csr_backward/edge_shard_attention", "sddmm_csr/edge_shard_attention_d_values",
                   *(f"{k}/edge_shard_attention" for k in attention_csr.SOFTMAX_KERNELS)):
         if not run_routes.get(route):
             raise AssertionError(f"phase 13's edge runs launched no {route}: {run_routes}")
@@ -3031,11 +3173,6 @@ def main():
               "its backward on the transpose CSR under the same mask", [lrows["aug_feat_transpose_dropout"]]),
     ]
     att_step = lmodels["AttIGCN"]["launches_per_step"]
-    last_entries.append(entry(
-        "spmm_csr_attention_dq", lrows["attention_dq"], att_run["attention_dq"], att_step["attention_dq"],
-        "the query's gradient, one product a head: the feature matrix's structure with head 0's score cotangent "
-        "as edge values @ [table | 1 | 0 0 0] (the ones column gives d(qb)); launches: AttIGCN's epoch",
-        [lrows["attention_dq"]]))
     last_entries[0].update(d_values_max_abs_err=lrows["d_values_max_abs_err"],
                            step_peak_bytes=lmodels["AttIGCN"]["step_peak_bytes"],
                            step_added_bytes=lmodels["AttIGCN"]["step_added_bytes"],
@@ -3064,8 +3201,14 @@ def main():
     att_entries = [
         att_entry("sddmm_csr", lrows["sddmm_scores"], "sddmm_csr/attention",
                   f"AttIGCN's scores, {ATT_CONFIG['n_heads']} heads: the folded query qk [n_rows, h, 64] read once a "
-                  "row against the gathered table rows, + qb; library_ms: the torch ops it replaced (an [nnz, h, "
-                  "64] gather of qk and row dots); launches: AttIGCN's epoch and evaluate"),
+                  "row into registers against the gathered table rows, + qb; library_ms: torch.sparse."
+                  "sampled_addmm batched over the heads; launches: AttIGCN's epoch and evaluate"),
+        att_entry("sddmm_csr_backward", lrows["sddmm_backward"], "sddmm_csr_backward/attention",
+                  f"the scores' gradient, {ATT_CONFIG['n_heads']} heads: d(qk) and d(qb) from the scores' cotangent, "
+                  "each table row gathered once an edge for every head, edge-balanced chunks with the cut rows "
+                  "added in chunk order by a second launch (counted too); library_ms: torch.sparse.mm once a head "
+                  "(h calls); earlier_path_*: the path it replaced, one SpMM a head on [table | 1 | 0 0 0] with a "
+                  "cat and a stack"),
         att_entry("sddmm_csr_d_values", lrows["sddmm_d_values"], "sddmm_csr/attention_d_values",
                   "d(values) of the product with the attention as edge values: the cotangent's row . the table's "
                   "row, one head; library_ms: torch.sparse.sampled_addmm on the CSR"),

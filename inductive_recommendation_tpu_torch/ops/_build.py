@@ -33,7 +33,8 @@ SIGNATURES = {
         ("spmm_csr_carries", [_P, _P, _P, _P, _I, _I, _I, _P]),
     ],
     "attention_csr": [
-        ("sddmm_csr", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        ("sddmm_csr", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        ("sddmm_csr_backward", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         ("softmax_stats", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P]),
         ("softmax_apply", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P]),
     ],

@@ -6,6 +6,10 @@ Functions that chain them.
   ``j < h <= 8``: the scores from the folded query (``a`` = qk, ``b`` = qb,
   ``x`` = the detached value table), and d(values) of the product with
   learned edge values (h = 1, ``a`` = the output's cotangent).
+- ``sddmm_csr_backward``: the scores' gradient, ``d_a[r, j, :] = sum over
+  r's edges of g[e, j] x[c_e, :]`` and ``d_b[r, j] = sum g[e, j]``: one
+  gather of each x row an edge for every head (two launches: the chunks,
+  then the rows they cut).
 - ``segment_softmax_csr``: the per-row softmax of each head at temperature
   T and its head mean (``ops.spmm.segment_softmax(...).mean(-1)``), with the
   per-head softmax ``p`` kept for the backward: ``softmax_stats`` (each
@@ -25,23 +29,18 @@ plain version. Each kernel launch adds one to ``route_launches`` under
 ``"<kernel>/<route>"`` (keys in ``ROUTES``); ``reset_launch_counts()`` zeroes
 them.
 
-The query's gradient needs no kernel of its own: ``d_qk[:, j, :] = A_{g_s[:,
-j]} @ v`` is the SpMM kernel (``csrc/spmm_csr.cu``) on the attention's CSR
-with head j's score cotangent as edge values, one product a head, counted
-under the layout's route plus ``_dq``. The products run on ``[v | 1 | 0 0
-0]``, so the ones column gives each row's sum of g_s, d(qb), in the same
-pass (the zeros keep the width a multiple of 4, the kernel's 16-byte path).
+Every kernel walks the edges in chunks, each chunk's walk starting from
+``chunk_first_rows`` (the first row of each chunk of ``SOFTMAX_CHUNK``
+edges), found once a layout.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from inductive_recommendation_tpu_torch.ops import _build
-from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, _product, route_key, row_of_edges
+from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, route_key, row_of_edges, spmm_csr_reference
 from inductive_recommendation_tpu_torch.ops.spmm import segment_softmax
 
 MAX_HEADS = 8  # kMaxHeads in csrc/attention_csr.cu
@@ -52,6 +51,7 @@ SOFTMAX_KERNELS = ("softmax_stats", "softmax_apply", "softmax_stats_backward", "
 ROUTES = (
     "sddmm_csr/attention", "sddmm_csr/attention_d_values",
     "sddmm_csr/edge_shard_attention", "sddmm_csr/edge_shard_attention_d_values",
+    "sddmm_csr_backward/attention", "sddmm_csr_backward/edge_shard_attention",
     *(f"{k}/{r}" for r in ("attention", "edge_shard_attention") for k in SOFTMAX_KERNELS),
 )
 route_launches: dict[str, int] = {}
@@ -129,7 +129,8 @@ def sddmm_csr_reference(row_ptr, col, a, x, b=None) -> torch.Tensor:
 
 
 def sddmm_csr_cuda(row_ptr, col, a, x, b=None, route="attention") -> torch.Tensor:
-    """Launch ``sddmm_csr`` on the current stream; fp32 [nnz, h]."""
+    """Launch ``sddmm_csr`` on the current stream; fp32 [nnz, h]; counted
+    under ``"sddmm_csr/<route>"``."""
     tensors = dict(row_ptr=row_ptr, col=col, a=a, x=x, **({} if b is None else {"b": b}))
     device = _check_cuda(_INDEX, **tensors)
     _check_sddmm(row_ptr, col, a, x, b)
@@ -139,8 +140,9 @@ def sddmm_csr_cuda(row_ptr, col, a, x, b=None, route="attention") -> torch.Tenso
     out = torch.empty(nnz, h, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _launch("sddmm_csr", row_ptr.data_ptr(), col.data_ptr(), a.data_ptr(), x.data_ptr(),
-                None if b is None else b.data_ptr(), out.data_ptr(), n_rows, nnz, h, dv, stream)
+        _launch("sddmm_csr", row_ptr.data_ptr(), chunk_first_rows(row_ptr, nnz).data_ptr(), col.data_ptr(),
+                a.data_ptr(), x.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), n_rows, nnz, h, dv,
+                stream)
     _count("sddmm_csr", route)
     return out
 
@@ -155,6 +157,58 @@ def sddmm_csr(row_ptr, col, a, x, b=None, route="attention") -> torch.Tensor:
         lambda: sddmm_csr_reference(row_ptr, col, a, x, b),
         lambda: sddmm_csr_cuda(row_ptr, col, a.contiguous(), x.contiguous(),
                                None if b is None else b.contiguous(), route),
+    )
+
+
+def sddmm_csr_backward_reference(row_ptr, col, g, x) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: (d_a [n_rows, h, dv], d_b [n_rows, h]), head j's
+    ``d_a[:, j]`` the product of the CSR with ``g[:, j]`` as edge values and
+    ``x``, ``d_b`` each row's sum of ``g``."""
+    d_a = torch.stack([spmm_csr_reference(row_ptr, col, g[:, j], x) for j in range(g.shape[1])], dim=1)
+    d_b = g.new_zeros(row_ptr.shape[0] - 1, g.shape[1]).index_add_(0, row_of_edges(row_ptr, g.shape[0]).long(), g)
+    return d_a, d_b
+
+
+def sddmm_csr_backward_cuda(row_ptr, col, g, x, route="attention") -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``sddmm_csr_backward`` on the current stream: (d_a, d_b);
+    counted under ``"sddmm_csr_backward/<route>"``, two launches when the
+    edges span more than one chunk."""
+    device = _check_cuda(_INDEX, row_ptr=row_ptr, col=col, g=g, x=x)
+    _check_edges("g", g, col.shape[0])
+    if x.ndim != 2 or x.shape[1] == 0:
+        raise ValueError(f"x must be [n_cols, dv >= 1], got {tuple(x.shape)}")
+    n_rows, (nnz, h), dv = row_ptr.shape[0] - 1, g.shape, x.shape[1]
+    if nnz >= 2**31:
+        raise ValueError("the kernel indexes edges with int32")
+    d_a = torch.empty(n_rows, h, dv, dtype=torch.float32, device=device)
+    d_b = torch.empty(n_rows, h, dtype=torch.float32, device=device)
+    if n_rows == 0:
+        return d_a, d_b
+    n_chunks = n_softmax_chunks(nnz)
+    # the parts of the rows cut by chunk boundaries, [chunk][run-in, cut][h](dv)
+    carry_a = torch.empty(n_chunks, 2, h, dv, dtype=torch.float32, device=device)
+    carry_b = torch.empty(n_chunks, 2, h, dtype=torch.float32, device=device)
+    cut_row = torch.empty(n_chunks, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _launch("sddmm_csr_backward", row_ptr.data_ptr(), chunk_first_rows(row_ptr, nnz).data_ptr(), col.data_ptr(),
+                g.data_ptr(), x.data_ptr(), d_a.data_ptr(), d_b.data_ptr(), carry_a.data_ptr(), carry_b.data_ptr(),
+                cut_row.data_ptr(), n_rows, nnz, h, dv, n_chunks, stream)
+    for _ in range(1 + (n_chunks > 1)):  # the chunks, then the rows they cut
+        _count("sddmm_csr_backward", route)
+    return d_a, d_b
+
+
+def sddmm_csr_backward(row_ptr, col, g, x, route="attention") -> tuple[torch.Tensor, torch.Tensor]:
+    """(d_a [n_rows, h, dv], d_b [n_rows, h]): ``d_a[r, j] = sum over r's
+    edges of g[e, j] x[col[e]]`` and ``d_b[r, j] = sum g[e, j]``, the
+    gradient of :func:`sddmm_csr`'s ``a`` and ``b`` from the scores' ``g``
+    [nnz, h]. The kernel on CUDA tensors (counted under ``route``), the
+    plain version on CPU ones."""
+    return _run(
+        [row_ptr, col, g, x],
+        lambda: sddmm_csr_backward_reference(row_ptr, col, g, x),
+        lambda: sddmm_csr_backward_cuda(row_ptr, col, g.contiguous(), x.contiguous(), route),
     )
 
 
@@ -416,16 +470,10 @@ def segment_softmax_csr_backward(row_ptr, p, g, temperature: float, route="atten
 # -- autograd ---------------------------------------------------------------------------
 
 
-def dq_route(mat: CsrSpMM) -> str:
-    """The route the query-gradient products on ``mat`` count under."""
-    return f"{mat.route or 'attention'}_dq"
-
-
 class _Scores(torch.autograd.Function):
     """scores [nnz, h] = qk[r_e] . v[c_e] + qb[r_e] (K1) on ``mat``'s edges;
-    ``v`` is the detached value table and gets no gradient. Backward: per
-    head j the SpMM kernel on ``mat`` with g_s[:, j] as edge values, on [v |
-    1 | 0 0 0]: d_qk[:, j] and, in the ones column, d_qb[:, j]."""
+    ``v`` is the detached value table and gets no gradient. Backward:
+    ``sddmm_csr_backward`` on ``mat``, d_qk and d_qb in one kernel."""
 
     @staticmethod
     def forward(ctx, qk, qb, v, mat):
@@ -436,12 +484,8 @@ class _Scores(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_s):
         mat, (v,) = ctx.mat, ctx.saved_tensors
-        n, dv = v.shape
-        v1 = torch.cat([v, v.new_ones(n, 1), v.new_zeros(n, 3)], dim=1).contiguous()
-        dmat = dataclasses.replace(mat, route=dq_route(mat))
-        d = torch.stack([_product(dataclasses.replace(dmat, val=g_s[:, j].contiguous()), v1)
-                         for j in range(g_s.shape[1])], dim=1)
-        return d[:, :, :dv], d[:, :, dv], None, None
+        d_qk, d_qb = sddmm_csr_backward(mat.row_ptr, mat.col, g_s, v, route=route_key(mat))
+        return d_qk, d_qb, None, None
 
 
 class _SoftmaxMean(torch.autograd.Function):

@@ -325,7 +325,6 @@ ROUTES = (
     "edge_shard_aug_feat", "edge_shard_aug_feat_transpose",
     "edge_shard_aug_feat_dropout", "edge_shard_aug_feat_transpose_dropout",
     "edge_shard_attention", "edge_shard_attention_transpose",
-    "attention_dq", "edge_shard_attention_dq",
 )
 
 # routed layouts whose products under dropout count apart
@@ -344,9 +343,7 @@ def route_key(mat: CsrSpMM, drop=None) -> str:
     ``_dropout`` under dropout; a shard of a per-epoch view, of DOSE_aug2's
     augmented feature matrix (with ``_dropout``) or of AttIGCN's attention,
     ``edge_shard_view``, ``edge_shard_aug_feat``, ``edge_shard_attention``,
-    each with its ``_transpose``; the query gradient's products of
-    AttIGCN's attention, ``attention_dq`` and ``edge_shard_attention_dq``,
-    ``ops.attention_csr``)."""
+    each with its ``_transpose``)."""
     dropout = "" if drop is None else "_dropout"
     if mat.route is None:
         return ("transpose" if mat.transposed else "forward") + dropout

@@ -1,70 +1,90 @@
-// AttIGCN's attention over a CSR for Hopper (sm_90a): the scores kernel and
-// the row softmax's statistics and apply passes.
+// AttIGCN's attention over a CSR for Hopper (sm_90a): the scores kernel, its
+// gradient, and the row softmax's statistics and apply passes.
 //
-//   sddmm_csr:      out[e, j] = a[r_e, j, :] . x[c_e, :] (+ b[r_e, j]),  j < h <= 8
-//   softmax_stats:  forward m[r, j] = max_e s[e, j], sum[r, j] = sum_e exp((s[e, j] - m[r, j]) / T);
-//                   backward c[r, j] = sum_e p[e, j] g[e]
-//   softmax_apply:  forward p[e, j] = exp((s[e, j] - m'[r_e, j]) / T) / sum'[r_e, j],
-//                           attn[e] = mean_j p[e, j];
-//                   backward g_s[e, j] = p[e, j] (g[e] - c[r_e, j]) / (h T)
+//   sddmm_csr:          out[e, j] = a[r_e, j, :] . x[c_e, :] (+ b[r_e, j]),  j < h <= 8
+//   sddmm_csr_backward: d_a[r, j, :] = sum_e g[e, j] x[c_e, :],  d_b[r, j] = sum_e g[e, j]
+//   softmax_stats:      forward m[r, j] = max_e s[e, j], sum[r, j] = sum_e exp((s[e, j] - m[r, j]) / T);
+//                       backward c[r, j] = sum_e p[e, j] g[e]
+//   softmax_apply:      forward p[e, j] = exp((s[e, j] - m'[r_e, j]) / T) / sum'[r_e, j],
+//                               attn[e] = mean_j p[e, j];
+//                       backward g_s[e, j] = p[e, j] (g[e] - c[r_e, j]) / (h T)
 //
 // over the edges e in [row_ptr[r], row_ptr[r+1]) of each row r, c_e = col[e];
 // m' is m where it is finite and 0 elsewhere, sum' is sum where it is > 0 and
 // 1 elsewhere (the plain version's rules, ops/spmm.py segment_softmax). The
 // row softmax of one CSR is softmax_stats then softmax_apply; on a shard of
 // the edge-sharded layer the two all-reduces of parallel/attention.py come
-// between them (the max of m, then the sums rescaled to it).
+// between them (the max of m, then the sums rescaled to them).
 //
 // Replaces: no TPU kernel. The JAX package computes this attention
 // (inductive_recommendation_tpu/ops/attention_spmm.py::attention_spmm_fused_kv,
-// :223, its forward _attention_forward_qk :175; sharded,
-// inductive_recommendation_tpu/parallel/attention.py:70) with XLA ops and no
-// Pallas kernel (:16-34). The port's first version gathered an [nnz, h, dv]
-// copy of the folded query per edge and scattered its gradient back with
-// atomics; these kernels read a row's folded query once and keep every sum in
-// a fixed order.
+// :223, its forward _attention_forward_qk :175, the scores' einsum :201-202
+// and its autodiff; sharded, inductive_recommendation_tpu/parallel/attention.py:70)
+// with XLA ops and no Pallas kernel (:16-34). The port's first version
+// gathered an [nnz, h, dv] copy of the folded query per edge and scattered
+// its gradient back with atomics, then took the gradient as one SpMM a head
+// on [x | 1 | 0 0 0]; these kernels read a row's folded query once, gather
+// each x row once per edge for every head, and keep every sum in a fixed
+// order.
 //
-// What bounds them: bytes. sddmm_csr at h = 4, dv = 64 does 2 * h * dv flops
-// an edge against x's dv-wide row gathered per edge (256 B, largely from L2:
-// x is 18 MB at the Gowalla-scale feature matrix) and 8 + 4 h bytes of CSR
-// and output; the softmax passes move a few floats an edge (the [nnz, h]
-// scores read twice, the second time largely from L2, p written once).
+// What bounds them: bytes. sddmm_csr at h = 4, dv = 64 does 2 h dv flops an
+// edge against x's dv-wide row gathered per edge (256 B, largely from L2: x
+// is 18 MB at the Gowalla-scale feature matrix, the gathers 477 MB a launch)
+// and 8 + 4 h bytes of CSR and output, and reads the folded query a (72.5 MB
+// at 4 heads, more than L2) once a row; sddmm_csr_backward moves the same
+// gathers and writes a's shape. The softmax passes move a few floats an edge
+// (the [nnz, h] scores read twice, the second time largely from L2, p
+// written once).
 //
 // Design.
-// - sddmm_csr walks [0, nnz) in chunks of kEdgesPerWarp edges, one warp each,
-//   like spmm_csr.cu's first launch: every warp has the same number of edges
-//   whatever the row degrees, and no chunk carries anything to another, since
-//   every output is one edge's. A warp finds the row of its first edge by a
-//   32-way search of row_ptr, then walks the rows that hold its edges, the
-//   next one found from 32 row ends loaded at once (a run of empty rows costs
-//   one load, or a search when it is longer than 32 rows). For each row it
-//   loads a[r] into registers once: lanes form P = 32 / G groups of G lanes,
-//   each lane holding 4 columns of every head (16-byte loads), and each group
-//   takes every P-th edge, kUnroll edges a group in flight. A group's h dot
-//   products meet by __shfl_xor_sync, halving the heads a lane holds each
-//   round (H - 1 + log2(G / H) shuffles, not H log2 G: 5 instead of 16 at 4
-//   heads and G = 16); one lane of each team that ends with a head's sum
-//   writes it.
+// - Every kernel but the scores is edge-balanced: [0, nnz) in chunks of
+//   kSoftmaxChunk = 256 edges, one warp each, whatever the row degrees (a
+//   12,745-edge row and a run of one-edge rows cost a warp the same). A
+//   warp's walk starts at its chunk's first row, from a table made once a
+//   layout (first_row: no search of row_ptr in each chunk), and loads 32 row
+//   starts at once (chunk_rows).
+// - sddmm_csr: chunks of kEdgesPerWarp = 128 edges, one warp each; the
+//   warp copies the chunk's columns into shared memory with cp.async while
+//   it finds its first row from the same table (row_of_edge), then walks
+//   the chunk row by row. 16-byte path: P = 32 / G groups of G lanes, each
+//   lane 4 columns of the row's a (h float4s in registers, read once a row)
+//   and of each edge's x row, each group every P-th edge, kUnroll edges'
+//   gathers in flight. The h dot products meet by __shfl_xor_sync, halving
+//   the heads a lane holds each round (H - 1 + log2(G / H) shuffles, not H
+//   log2 G); one lane of each team that ends with a head's sum writes it.
+//   Each output is one edge's: nothing is carried between chunks. On the
+//   card the kernel is bound by the latency of its gathers and instruction
+//   chains more than by bytes: an edge-balanced rewrite (256-edge chunks,
+//   the chunk's rows of a staged in shared memory by cp.async, one flat
+//   loop over the edges) measured 1.8% slower at 4 heads and 6.5% faster
+//   at one head (PERF.md, section 6), and did not pay for its code.
 //   Widths dv % 4 != 0, dv > 128 or operands off 16-byte alignment take a
-//   scalar variant (one column a lane, a[r] read from L1 per edge).
-//   The chunk's columns are staged in shared memory with cp.async while the
-//   warp searches for its first row. The registers are sized for H >= h
-//   heads (1, 2, 4 or 8), so one head does not pay for eight.
-// - The softmax passes are edge-balanced too: [0, nnz) in chunks of
-//   kSoftmaxChunk = 32 * kSoftmaxLane edges, one warp each, lane l taking the
-//   kSoftmaxLane consecutive edges from l * kSoftmaxLane, whatever the row
-//   degrees (a 12,745-edge row and a run of one-edge rows cost a warp the
-//   same). Lanes reading 16-byte pieces of their own runs straight from
-//   global memory stream at less than half the rate of coalesced accesses,
-//   so a warp first copies its chunk into a padded shared-memory tile with
-//   coalesced 16-byte cp.async copies (the pad keeps both the copies and each
-//   lane's reads of its run free of bank conflicts), and the apply pass
-//   writes back through the same tile. The copies are started before the
-//   warp finds its rows, so the walk's latency hides behind them. A warp's
-//   walk starts at its chunk's first row, from a table made once a layout
-//   (first_row: no search of row_ptr in each chunk), loads 32 row starts at
-//   once, and marks in the tile where each row starts; a lane knows each
-//   of its edges' row from the marks and a max-scan over the lanes.
+//   scalar kernel (the same chunks and walk, one column a lane, a[r] read
+//   per edge).
+// - sddmm_csr_backward: an SpMM whose h edge values share one gather, in
+//   two launches as spmm_csr.cu's. The chunk kernel stages the chunk's
+//   columns and its [256, h] cotangents in shared memory (cp.async), walks
+//   its rows, and sums each row's part with H 16-byte accumulators a lane
+//   (P groups of G lanes, every P-th edge, kUnroll edges in flight), d_b
+//   beside them (no ones column); the groups meet by __shfl_xor_sync.
+//   Rows that end in the chunk are written; the part of a row that runs in
+//   from an earlier chunk goes to carry[c][0], the part of the row cut by
+//   the chunk's end to carry[c][1] and its index to cut_row[c]; the last
+//   chunk writes the trailing empty rows. The carry kernel adds each cut
+//   row's parts in chunk order (one group of lanes a boundary and head).
+//   dv % 4 != 0 or operands off 16-byte alignment take one float a lane;
+//   widths over 4 G take more column tiles along grid.y.
+// - The softmax passes: each lane takes kSoftmaxLane consecutive edges of
+//   the warp's chunk. Lanes reading 16-byte pieces of their own runs
+//   straight from global memory stream at less than half the rate of
+//   coalesced accesses, so a warp first copies its chunk into a padded
+//   shared-memory tile with coalesced 16-byte cp.async copies (the pad keeps
+//   both the copies and each lane's reads of its run free of bank
+//   conflicts), and the apply pass writes back through the same tile. The
+//   copies are started before the warp finds its rows, so the walk's latency
+//   hides behind them. The walk marks in the tile where each row starts; a
+//   lane knows each of its edges' row from the marks and a max-scan over the
+//   lanes.
 //   * softmax_stats_chunk_kernel: each lane walks its edges in order and keeps
 //     an online (max m, sum s of exp((x - m) / T)) of each head for each row
 //     segment: one exp an entry (exp(-|x - m| / T) serves both a new max, as
@@ -87,25 +107,29 @@
 //     loads its first two rows' statistics before it needs them (from L2:
 //     [n_rows, h] is 1.1 MB at the Gowalla scale) and writes p and attn
 //     (backward: g_s). Each output is one edge's, so nothing is carried.
-//   Nothing is atomic, every sum has a fixed order, and the lanes' registers
-//   are sized for H >= h heads (1, 2, 4 or 8); h = 3, 5-7 and operands off
-//   16-byte alignment take 4-byte copies (kVec false). Divisions by T, h T
-//   and the row sums are multiplications by reciprocals (an IEEE division
-//   branches to a slow path on a zero or infinite numerator, which every
-//   row's max and every segment's start give), and the exponentials are
-//   __expf (ex2.approx; within a few ulp here, far inside the passes'
-//   tolerance of 1e-5).
+//   The lanes' registers are sized for H >= h heads (1, 2, 4 or 8); h = 3,
+//   5-7 and operands off 16-byte alignment take 4-byte copies (kVec false).
+//   Divisions by T, h T and the row sums are multiplications by reciprocals
+//   (an IEEE division branches to a slow path on a zero or infinite
+//   numerator, which every row's max and every segment's start give), and
+//   the exponentials are __expf (ex2.approx; within a few ulp here, far
+//   inside the passes' tolerance of 1e-5).
+// Nothing is atomic, every sum has a fixed order, and every kernel's
+// registers are sized for H >= h heads (1, 2, 4 or 8), so one head does not
+// pay for eight.
 
 // Contract (checked by the Python wrapper, ops/attention_csr.py): every
 // pointer on the current device and contiguous; row_ptr / col int32, cut_row
 // int32, the rest fp32; 1 <= h <= kMaxHeads; nnz = row_ptr[n_rows] < 2^31; a
-// is [n_rows, h, dv], x [n_cols, dv], b null or [n_rows, h]; scores, p and
-// g_s [nnz, h]; attn and g [nnz]; the statistics [n_rows, h]; n_chunks =
-// max(1, ceil(nnz / kSoftmaxChunk)) (SOFTMAX_CHUNK in attention_csr.py),
-// carry 4 h floats and cut_row one int32 a chunk; first_row, for each
-// chunk c, the first row r with row_ptr[r] >= c * kSoftmaxChunk. The launches go on the
-// given stream, allocate nothing and do not synchronise. Each entry point
-// returns cudaGetLastError() after its launches.
+// and d_a are [n_rows, h, dv], x [n_cols, dv], b null or [n_rows, h], d_b
+// [n_rows, h]; scores, p, g and g_s [nnz, h] (the softmax's g: [nnz]); attn
+// [nnz]; the statistics [n_rows, h]; n_chunks = max(1, ceil(nnz /
+// kSoftmaxChunk)) (SOFTMAX_CHUNK in attention_csr.py), the softmax's carry 4
+// h floats, sddmm_csr_backward's carry_a 2 h dv and carry_b 2 h floats, and
+// cut_row one int32 a chunk; first_row, for each chunk c, the first row r
+// with row_ptr[r] >= c * kSoftmaxChunk. The launches go on the given stream,
+// allocate nothing and do not synchronise. Each entry point returns
+// cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -125,6 +149,7 @@ constexpr int kSoftmaxLane = 8;     // consecutive edges a softmax lane takes
 constexpr int kSoftmaxChunk = 32 * kSoftmaxLane;  // a softmax warp's (SOFTMAX_CHUNK in attention_csr.py)
 constexpr int kSoftmaxWarps = 4;    // a softmax block's (its tiles fit in 48 KB at 8 heads)
 constexpr int kSoftmaxThreads = 32 * kSoftmaxWarps;
+constexpr int kBwdWarps = 4;        // a sddmm_csr_backward block's (its tiles fit in 48 KB at 8 heads)
 
 // The first i in [0, n] with a[i] >= v, for a nondecreasing a[0..n] with
 // a[n] >= v (as in spmm_csr.cu). Uniform across the warp.
@@ -147,12 +172,22 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int n
   return lo;
 }
 
-// The row after r that holds edge e, given row_ptr[r + 1] == e < nnz.
+// The row after r that holds edge e, given row_ptr[r + 1] <= e < nnz.
 __device__ __forceinline__ int next_row(const int* __restrict__ row_ptr, int n_rows, int r, int e, int lane) {
   const int i = r + 1 + lane;
   const bool holds = i < n_rows && __ldg(row_ptr + i + 1) > e;
   const unsigned ballot = __ballot_sync(kFull, holds);
   return ballot ? r + __ffs(ballot) : warp_lower_bound(row_ptr, n_rows, e + 1, lane) - 1;
+}
+
+// The row that holds edge e < nnz, from first_row's row f of e's softmax
+// chunk (the first row starting at or after the chunk's first edge): f - 1
+// when f starts past e, else the first row from f on that ends past e
+// (mostly one ballot of 32 row ends; a search of row_ptr only past 32 rows).
+__device__ __forceinline__ int row_of_edge(const int* __restrict__ row_ptr, const int* __restrict__ first_row,
+                                           int n_rows, int e, int lane) {
+  const int f = __ldg(first_row + e / kSoftmaxChunk);
+  return __ldg(row_ptr + f) > e ? f - 1 : next_row(row_ptr, n_rows, f - 1, e, lane);
 }
 
 // 4-byte asynchronous copy from global to shared memory, and the wait for
@@ -166,15 +201,43 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 
 // -- sddmm_csr --------------------------------------------------------------------
 
+// A group's H dot products summed over its G lanes: each round a lane keeps
+// half of its heads and sends the other half to its partner, then plain
+// rounds for the head it keeps. Returns the first head whose sum the lane
+// holds in s[0, kKept) (kKept = H / G when H > G, else 1; each team of G / H
+// lanes holds the same).
+template <int G, int H>
+__device__ __forceinline__ int halve_heads(float (&s)[H], int gl) {
+  int head = 0;
+#pragma unroll
+  for (int rnd = 0, m = G / 2; m > 0; ++rnd, m >>= 1) {
+    const int k = H >> rnd;  // heads a lane holds before this round
+    if (k > 1) {
+      const bool upper = (gl & m) != 0;
+#pragma unroll
+      for (int q = 0; q < k / 2; ++q) {
+        const float send = upper ? s[q] : s[q + k / 2];
+        const float keep = upper ? s[q + k / 2] : s[q];
+        s[q] = keep + __shfl_xor_sync(kFull, send, m);
+      }
+      if (upper) head += k / 2;
+    } else {
+      s[0] += __shfl_xor_sync(kFull, s[0], m);
+    }
+  }
+  return head;
+}
+
 // 16-byte path: G lanes of 4 columns cover dv <= 4 G; a[r] in registers;
 // H >= h heads' registers (h in (H / 2, H]). At most 64 registers a thread
 // (4 blocks an SM): the loop is bound by the latency of its gathers.
 template <int G, int H>
 __global__ void __launch_bounds__(kThreads, 4)
-sddmm_vec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col, const float* __restrict__ a,
-                 const float* __restrict__ x, const float* __restrict__ b, float* __restrict__ out,
-                 int n_rows, int nnz, int h, int dv, int n_chunks) {
+sddmm_vec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ first_row, const int* __restrict__ col,
+                 const float* __restrict__ a, const float* __restrict__ x, const float* __restrict__ b,
+                 float* __restrict__ out, int n_rows, int nnz, int h, int dv, int n_chunks) {
   constexpr int P = 32 / G;
+  constexpr int kKept = H > G ? H / G : 1, kTeam = H < G ? G / H : 1;
   __shared__ int s_cols[kWarpsPerBlock][kEdgesPerWarp];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarpsPerBlock + warp;
@@ -184,9 +247,9 @@ sddmm_vec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col, c
   const bool active = col0 < dv;
   const int cs = c * kEdgesPerWarp;
   const int ce = cs + min(nnz - cs, kEdgesPerWarp);
-  // stage the chunk's columns while the warp searches for its first row
+  // stage the chunk's columns while the warp finds its first row
   for (int i = lane; i < ce - cs; i += 32) cp_async4(s_col + i, col + cs + i);
-  int r = warp_lower_bound(row_ptr, n_rows, cs + 1, lane) - 1;  // the row holding edge cs
+  int r = row_of_edge(row_ptr, first_row, n_rows, cs, lane);
   cp_async_wait_all();
   __syncwarp();
   int e0 = cs;
@@ -216,28 +279,7 @@ sddmm_vec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col, c
           s[j] = fmaf(ar[j].z, xv[u].z, s[j]);
           s[j] = fmaf(ar[j].w, xv[u].w, s[j]);
         }
-        // the group's h sums by halving: each round a lane keeps half of
-        // its heads and sends the other half to its partner, then plain
-        // rounds for the head it keeps
-        int head = 0;  // the first head this lane keeps
-#pragma unroll
-        for (int rnd = 0, m = G / 2; m > 0; ++rnd, m >>= 1) {
-          const int k = H >> rnd;  // heads a lane holds before this round
-          if (k > 1) {
-            const bool upper = (gl & m) != 0;
-#pragma unroll
-            for (int q = 0; q < k / 2; ++q) {
-              const float send = upper ? s[q] : s[q + k / 2];
-              const float keep = upper ? s[q + k / 2] : s[q];
-              s[q] = keep + __shfl_xor_sync(kFull, send, m);
-            }
-            if (upper) head += k / 2;
-          } else {
-            s[0] += __shfl_xor_sync(kFull, s[0], m);
-          }
-        }
-        // each team of kTeam lanes holds the same kKept heads' sums
-        constexpr int kKept = H > G ? H / G : 1, kTeam = H < G ? G / H : 1;
+        const int head = halve_heads<G, H>(s, gl);
         const int i = first + u * P + group;
         if (i < rend && (gl & (kTeam - 1)) == 0) {
 #pragma unroll
@@ -256,15 +298,15 @@ sddmm_vec_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col, c
 
 // Scalar path: any dv, any alignment; lane l takes the columns l, l + 32, ...
 __global__ void __launch_bounds__(kThreads)
-sddmm_scalar_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col, const float* __restrict__ a,
-                    const float* __restrict__ x, const float* __restrict__ b, float* __restrict__ out,
-                    int n_rows, int nnz, int h, int dv, int n_chunks) {
+sddmm_scalar_kernel(const int* __restrict__ row_ptr, const int* __restrict__ first_row, const int* __restrict__ col,
+                    const float* __restrict__ a, const float* __restrict__ x, const float* __restrict__ b,
+                    float* __restrict__ out, int n_rows, int nnz, int h, int dv, int n_chunks) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarpsPerBlock + warp;
   if (c >= n_chunks) return;
   const int cs = c * kEdgesPerWarp;
   const int ce = cs + min(nnz - cs, kEdgesPerWarp);
-  int r = warp_lower_bound(row_ptr, n_rows, cs + 1, lane) - 1;
+  int r = row_of_edge(row_ptr, first_row, n_rows, cs, lane);
   int e0 = cs;
   while (true) {
     const int rend = min(__ldg(row_ptr + r + 1), ce);
@@ -865,6 +907,217 @@ softmax_apply_kernel(const int* __restrict__ row_ptr, const int* __restrict__ fi
   unstage_chunk<kVec, H>(t, out, kBwd ? nullptr : attn, cs, n, h, lane);
 }
 
+// -- sddmm_csr_backward --------------------------------------------------------------
+
+template <int VW>
+struct Vec;
+
+template <>
+struct Vec<4> {
+  float4 v;
+  __device__ __forceinline__ void zero() { v = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void load(const float* p) { v = __ldg(reinterpret_cast<const float4*>(p)); }
+  __device__ __forceinline__ void store(float* p) const { *reinterpret_cast<float4*>(p) = v; }
+  __device__ __forceinline__ void add(const Vec& o) {
+    v.x += o.v.x;
+    v.y += o.v.y;
+    v.z += o.v.z;
+    v.w += o.v.w;
+  }
+  __device__ __forceinline__ void fma(float w, const Vec& o) {
+    v.x = fmaf(w, o.v.x, v.x);
+    v.y = fmaf(w, o.v.y, v.y);
+    v.z = fmaf(w, o.v.z, v.z);
+    v.w = fmaf(w, o.v.w, v.w);
+  }
+  __device__ __forceinline__ void add_xor(int mask) {
+    v.x += __shfl_xor_sync(kFull, v.x, mask);
+    v.y += __shfl_xor_sync(kFull, v.y, mask);
+    v.z += __shfl_xor_sync(kFull, v.z, mask);
+    v.w += __shfl_xor_sync(kFull, v.w, mask);
+  }
+};
+
+template <>
+struct Vec<1> {
+  float v;
+  __device__ __forceinline__ void zero() { v = 0.f; }
+  __device__ __forceinline__ void load(const float* p) { v = __ldg(p); }
+  __device__ __forceinline__ void store(float* p) const { *p = v; }
+  __device__ __forceinline__ void add(const Vec& o) { v += o.v; }
+  __device__ __forceinline__ void fma(float w, const Vec& o) { v = fmaf(w, o.v, v); }
+  __device__ __forceinline__ void add_xor(int mask) { v += __shfl_xor_sync(kFull, v, mask); }
+};
+
+// The sums over the chunk-local edges [lo, hi) of one row: acc[j] = sum
+// g[., j] x[col, col0 .. col0 + VW) and bs[j] = sum g[., j], each lane's
+// group taking every P-th edge, reduced over the P groups: every lane
+// returns the sums of its columns. All lanes of the warp call it together
+// (lo and hi are uniform; an empty row takes no shuffle).
+template <int G, int VW, int H>
+__device__ __forceinline__ void bwd_row_sum(const int* s_col, const float* s_g, int lo, int hi,
+                                            const float* __restrict__ x, int dv, int col0, bool active, int group,
+                                            int h, Vec<VW> (&acc)[H], float (&bs)[H]) {
+  constexpr int P = 32 / G;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    acc[j].zero();
+    bs[j] = 0.f;
+  }
+  if (lo >= hi) return;
+  for (int e = lo + group; e < hi; e += kUnroll * P) {
+    Vec<VW> xv[kUnroll];
+    float w[kUnroll][H];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = e + u * P;
+#pragma unroll
+      for (int j = 0; j < H; ++j) w[u][j] = i < hi && j < h ? s_g[i * h + j] : 0.f;
+      if (active && i < hi) {
+        xv[u].load(x + (size_t)s_col[i] * dv + col0);
+      } else {
+        xv[u].zero();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        acc[j].fma(w[u][j], xv[u]);
+        bs[j] += w[u][j];
+      }
+    }
+  }
+#pragma unroll
+  for (int m = G; m < 32; m <<= 1) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      acc[j].add_xor(m);
+      bs[j] += __shfl_xor_sync(kFull, bs[j], m);
+    }
+  }
+}
+
+// Launch 1: every row with all its edges in the chunk; the parts of the rows
+// cut by its ends to carry_a / carry_b ([chunk][run-in, cut][h][dv] and
+// [chunk][run-in, cut][h]) and the cut row to cut_row.
+template <int G, int VW, int H>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+sddmm_bwd_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ first_row,
+                       const int* __restrict__ col, const float* __restrict__ g, const float* __restrict__ x,
+                       float* __restrict__ d_a, float* __restrict__ d_b, float* __restrict__ carry_a,
+                       float* __restrict__ carry_b, int* __restrict__ cut_row, int n_rows, int nnz, int h, int dv,
+                       int n_chunks) {
+  __shared__ __align__(16) int s_cols[kBwdWarps][kSoftmaxChunk];
+  __shared__ __align__(16) float s_gs[kBwdWarps][kSoftmaxChunk * H];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kBwdWarps + warp;
+  if (c >= n_chunks) return;  // whole warps leave together
+  int* s_col = s_cols[warp];
+  float* s_g = s_gs[warp];
+  const int group = lane / G;
+  const int col0 = blockIdx.y * (G * VW) + (lane % G) * VW;
+  const bool active = col0 < dv;
+  const bool writer = active && lane < G;  // group 0 writes the reduced sums
+  const bool first_tile = blockIdx.y == 0;  // its lane 0 writes d_b and cut_row
+  const int cs = c * kSoftmaxChunk;
+  const int ce = cs + min(nnz - cs, kSoftmaxChunk);
+  const bool last = c == n_chunks - 1;
+  // the chunk's columns and cotangents come in while the warp finds its first row
+  for (int i = lane; i < ce - cs; i += 32) cp_async4(s_col + i, col + cs + i);
+  const int ng = (ce - cs) * h;
+  const float* gc = g + (size_t)cs * h;
+  const int ng4 = (reinterpret_cast<uintptr_t>(gc) & 15) == 0 ? ng / 4 : 0;
+  for (int i = lane; i < ng4; i += 32) cp_async16(s_g + 4 * i, gc + 4 * i);
+  for (int i = 4 * ng4 + lane; i < ng; i += 32) cp_async4(s_g + i, gc + i);
+  int r = __ldg(first_row + c);  // the first row starting at or after cs
+  int start = __ldg(row_ptr + r);
+  cp_async_wait_all();
+  __syncwarp();
+  Vec<VW> acc[H];
+  float bs[H];
+  auto store = [&](float* pa, float* pb) {  // a row's [h][dv] and [h]
+    if (writer) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        if (j < h) acc[j].store(pa + (size_t)j * dv + col0);
+      }
+    }
+    if (first_tile && lane == 0) {
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        if (j < h) pb[j] = bs[j];
+      }
+    }
+  };
+  if (r > 0 && start > cs) {  // row r - 1 runs into this chunk from an earlier one
+    bwd_row_sum<G, VW, H>(s_col, s_g, 0, min(start, ce) - cs, x, dv, col0, active, group, h, acc, bs);
+    store(carry_a + (size_t)c * 2 * h * dv, carry_b + (size_t)c * 2 * h);
+  }
+  int cut = -1;
+  bool more = r < n_rows && (last || start < ce);
+  while (more) {
+    const int nb = min(32, n_rows - r);
+    const int my_end = lane < nb ? __ldg(row_ptr + r + 1 + lane) : 0;
+    for (int j = 0; j < nb; ++j) {
+      const int end = __shfl_sync(kFull, my_end, j);
+      bwd_row_sum<G, VW, H>(s_col, s_g, start - cs, min(end, ce) - cs, x, dv, col0, active, group, h, acc, bs);
+      if (end > ce) {  // a row that runs past the chunk leaves its part for the carry pass
+        cut = r + j;
+        store(carry_a + ((size_t)c * 2 + 1) * h * dv, carry_b + ((size_t)c * 2 + 1) * h);
+      } else {
+        store(d_a + (size_t)(r + j) * h * dv, d_b + (size_t)(r + j) * h);
+      }
+      start = end;
+      if (!last && start >= ce) {
+        more = false;
+        break;
+      }
+    }
+    r += nb;
+    more = more && r < n_rows;
+  }
+  if (!last && lane == 0 && first_tile) cut_row[c] = cut;
+}
+
+// Launch 2: each row cut by a chunk boundary, its parts added in chunk order;
+// a group of G lanes a boundary, head j = blockIdx.z.
+template <int G, int VW>
+__global__ void __launch_bounds__(kThreads)
+sddmm_bwd_carry_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cut_row,
+                       const float* __restrict__ carry_a, const float* __restrict__ carry_b, float* __restrict__ d_a,
+                       float* __restrict__ d_b, int h, int dv, int n_bounds) {
+  constexpr int P = 32 / G;
+  constexpr int kBatch = 16;
+  const int lane = threadIdx.x & 31;
+  const int c = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * P + lane / G;
+  const int j = blockIdx.z;
+  const int col0 = blockIdx.y * (G * VW) + (lane % G) * VW;
+  if (c >= n_bounds || col0 >= dv) return;  // no shuffles below: lanes may leave alone
+  const int r = cut_row[c];
+  if (r < 0) return;
+  const int c1 = (__ldg(row_ptr + r + 1) - 1) / kSoftmaxChunk;  // the chunk of r's last edge
+  auto part = [&](int k, int side) { return carry_a + (((size_t)k * 2 + side) * h + j) * dv + col0; };
+  Vec<VW> sum;
+  sum.load(part(c, 1));
+  for (int k = c + 1; k <= c1; k += kBatch) {
+    // unconditional loads (past c1 they repeat c1's) keep all kBatch in flight
+    Vec<VW> parts[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) parts[u].load(part(min(k + u, c1), 0));
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k + u <= c1) sum.add(parts[u]);
+    }
+  }
+  sum.store(d_a + ((size_t)r * h + j) * dv + col0);
+  if (col0 == 0) {  // one lane a boundary and head: d_b
+    float sb = carry_b[((size_t)c * 2 + 1) * h + j];
+    for (int k = c + 1; k <= c1; ++k) sb += carry_b[(size_t)k * 2 * h + j];
+    d_b[(size_t)r * h + j] = sb;
+  }
+}
+
 template <int V>
 using Int = std::integral_constant<int, V>;
 
@@ -882,6 +1135,24 @@ void with_heads(int h, F&& f) {
   }
 }
 
+// Calls f(Int<G>(), Int<VW>()) with sddmm_csr_backward's lane layout of width
+// dv: 16-byte loads by groups of G = 4..32 lanes when vec, else one float a
+// lane over 32 lanes (as spmm_csr.cu).
+template <typename F>
+void with_layout(int dv, bool vec, F&& f) {
+  if (!vec) {
+    f(Int<32>(), Int<1>());
+  } else if (dv <= 16) {
+    f(Int<4>(), Int<4>());
+  } else if (dv <= 32) {
+    f(Int<8>(), Int<4>());
+  } else if (dv <= 64) {
+    f(Int<16>(), Int<4>());
+  } else {
+    f(Int<32>(), Int<4>());
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // Rows of H floats at p take H-float accesses (16-byte ones at most).
@@ -894,17 +1165,17 @@ unsigned softmax_blocks(int n_chunks) { return (unsigned)((n_chunks + kSoftmaxWa
 }  // namespace
 
 // K1: out[e, j] = a[r_e, j, :] . x[col[e], :] (+ b[r_e, j]); b may be null.
-extern "C" int sddmm_csr(const void* row_ptr, const void* col, const void* a, const void* x, const void* b,
-                         void* out, int n_rows, int nnz, int h, int dv, void* stream) {
+// first_row is the softmax passes' table; the chunks are kEdgesPerWarp edges.
+extern "C" int sddmm_csr(const void* row_ptr, const void* first_row, const void* col, const void* a, const void* x,
+                         const void* b, void* out, int n_rows, int nnz, int h, int dv, void* stream) {
   if (nnz > 0 && n_rows > 0 && h >= 1 && h <= kMaxHeads) {
     const int n_chunks = (nnz + kEdgesPerWarp - 1) / kEdgesPerWarp;
-    const dim3 grid(blocks_for(n_chunks));
     auto s = static_cast<cudaStream_t>(stream);
     auto args = [&](auto kernel) {
-      kernel<<<grid, kThreads, 0, s>>>(static_cast<const int*>(row_ptr), static_cast<const int*>(col),
-                                       static_cast<const float*>(a), static_cast<const float*>(x),
-                                       static_cast<const float*>(b), static_cast<float*>(out), n_rows, nnz, h, dv,
-                                       n_chunks);
+      kernel<<<blocks_for(n_chunks), kThreads, 0, s>>>(
+          static_cast<const int*>(row_ptr), static_cast<const int*>(first_row), static_cast<const int*>(col),
+          static_cast<const float*>(a), static_cast<const float*>(x), static_cast<const float*>(b),
+          static_cast<float*>(out), n_rows, nnz, h, dv, n_chunks);
     };
     if (dv % 4 != 0 || dv > 128 || !aligned16(a) || !aligned16(x)) {
       args(sddmm_scalar_kernel);
@@ -922,6 +1193,40 @@ extern "C" int sddmm_csr(const void* row_ptr, const void* col, const void* a, co
         }
       });
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The scores' gradient: d_a[r, j, :] = sum_e g[e, j] x[col[e], :] and d_b[r,
+// j] = sum_e g[e, j] over each row's edges. Two launches when there is more
+// than one chunk: the chunks, then the cut rows.
+extern "C" int sddmm_csr_backward(const void* row_ptr, const void* first_row, const void* col, const void* g,
+                                  const void* x, void* d_a, void* d_b, void* carry_a, void* carry_b, void* cut_row,
+                                  int n_rows, int nnz, int h, int dv, int n_chunks, void* stream) {
+  if (n_rows > 0 && dv > 0 && h >= 1 && h <= kMaxHeads) {
+    auto s = static_cast<cudaStream_t>(stream);
+    const bool vec = dv % 4 == 0 && aligned16(x) && aligned16(d_a) && aligned16(carry_a);
+    with_layout(dv, vec, [&](auto gg, auto vw) {
+      constexpr int G = decltype(gg)::value, VW = decltype(vw)::value;
+      const unsigned tiles = (unsigned)((dv + G * VW - 1) / (G * VW));
+      with_heads(h, [&](auto hh) {
+        constexpr int H = decltype(hh)::value;
+        const dim3 grid((unsigned)((n_chunks + kBwdWarps - 1) / kBwdWarps), tiles);
+        sddmm_bwd_chunk_kernel<G, VW, H><<<grid, kBwdWarps * 32, 0, s>>>(
+            static_cast<const int*>(row_ptr), static_cast<const int*>(first_row), static_cast<const int*>(col),
+            static_cast<const float*>(g), static_cast<const float*>(x), static_cast<float*>(d_a),
+            static_cast<float*>(d_b), static_cast<float*>(carry_a), static_cast<float*>(carry_b),
+            static_cast<int*>(cut_row), n_rows, nnz, h, dv, n_chunks);
+      });
+      const int n_bounds = n_chunks - 1;
+      if (n_bounds > 0 && cudaPeekAtLastError() == cudaSuccess) {
+        constexpr int per_block = kWarpsPerBlock * (32 / G);  // boundaries a block sums
+        const dim3 grid((unsigned)((n_bounds + per_block - 1) / per_block), tiles, (unsigned)h);
+        sddmm_bwd_carry_kernel<G, VW><<<grid, kThreads, 0, s>>>(
+            static_cast<const int*>(row_ptr), static_cast<const int*>(cut_row), static_cast<const float*>(carry_a),
+            static_cast<const float*>(carry_b), static_cast<float*>(d_a), static_cast<float*>(d_b), h, dv, n_bounds);
+      }
+    });
   }
   return (int)cudaGetLastError();
 }

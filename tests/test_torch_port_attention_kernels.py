@@ -10,6 +10,10 @@ on the CPU, where every wrapper runs its plain PyTorch version:
   and v, to 1e-5 * max(1, max |ref|) (fp32 sums in other orders); bk's
   gradient is 0 in exact arithmetic (a per-row shift of the scores) and is
   held to a small share of Wk's, as in ``test_torch_port_att.py``;
+- the scores' gradient (``sddmm_csr_backward_reference``, and ``_Scores``'
+  backward through ``attention_scores``) against ``jax.vjp`` of the score
+  einsum as ``_attention_forward_qk`` writes it, at h 1, 3, 4, 8 and dv 16,
+  64, 67, on a CSR with runs of empty rows and a 1,100-edge row;
 - d(values) of ``spmm_csr_values`` (the SDDMM with one head) against JAX's
   ``_bilinear_bwd`` on its bucketed layout;
 - the sharded scores of ``parallel/attention.py`` against the single-device
@@ -273,14 +277,94 @@ def test_softmax_routes():
     assert not any(k.startswith("segment_softmax") for k in K.ROUTES)
 
 
-def test_query_gradient_routes():
-    """The query-gradient products count under routes the SpMM knows; the
-    attention kernels' routes reset to 0."""
-    assert K.dq_route(build_csr_spmm([0], [0], [1.0], (1, 1))) == "attention_dq"
-    assert {"attention_dq", "edge_shard_attention_dq"} <= set(SPMM_ROUTES)
-    K.route_launches["sddmm_csr/attention"] = 3
+def test_scores_gradient_routes(mats, monkeypatch):
+    """The scores' gradient counts under ``sddmm_csr_backward/<route>`` on
+    the single-device layout's route and on a shard's; the SpMM has no
+    query-gradient route left, and ``_Scores``' backward calls no SpMM
+    product; the attention kernels' routes reset to 0."""
+    from inductive_recommendation_tpu_torch.ops import csr_spmm
+
+    assert {"sddmm_csr_backward/attention", "sddmm_csr_backward/edge_shard_attention"} <= set(K.ROUTES)
+    assert not any(r.endswith("_dq") for r in SPMM_ROUTES)
+
+    def no_product(*args, **kwargs):
+        raise AssertionError("the scores' gradient called an SpMM product")
+
+    monkeypatch.setattr(csr_spmm, "_product", no_product)
+    monkeypatch.setattr(csr_spmm, "spmm_csr_cuda", no_product)
+    mat, _ = mats
+    qk = torch.zeros(N_ROWS, 4, 8, requires_grad=True)
+    qb = torch.zeros(N_ROWS, 4, requires_grad=True)
+    K.attention_scores(mat, qk, qb, torch.ones(N_COLS, 8)).sum().backward()
+    assert float(qb.grad.sum()) == mat.nnz * 4
+    K.route_launches["sddmm_csr_backward/attention"] = 3
     K.reset_launch_counts()
     assert K.route_launches == dict.fromkeys(K.ROUTES, 0)
+
+
+# -- the scores' gradient against JAX's autodiff of its score einsum --------------------
+
+
+@pytest.fixture(scope="module")
+def runs_mats():
+    """The port's values layout and JAX's bucketed layout of a COO with runs
+    of empty rows (30 at the start, 20 after the long row) and a 1,100-edge
+    row, the rest 0-10 edges."""
+    rng = np.random.default_rng(12)
+    degrees = np.concatenate([np.zeros(30, np.int64), rng.integers(0, 11, 100), [LONG_DEGREE],
+                              np.zeros(20, np.int64), rng.integers(0, 11, 149)])
+    cols = [rng.choice(N_COLS, size=k, replace=False) for k in degrees]
+    row, col = np.repeat(np.arange(N_ROWS), degrees), np.concatenate(cols)
+    val = rng.uniform(0.5, 1.5, len(row)).astype(np.float32)
+    port = values_layout(build_csr_spmm(row, col, val, (N_ROWS, N_COLS)))
+    return port, build_bucketed_spmm(row, col, val, (N_ROWS, N_COLS), symmetric=False)
+
+
+def _jax_bucket_scores(jmat, qk, qb, v):
+    """The scores as ``_attention_forward_qk`` writes them (attention_spmm.py
+    :198-202), bucket by bucket: ``qk[rows]`` against the stop-gradient
+    value gather, plus ``qb``; [m, k, h] a bucket."""
+    out = []
+    for b, rows in jax_att._iter_buckets(jmat.fwd):
+        vals_sg = jax.lax.stop_gradient(jnp.take(v, b.idx, axis=0))
+        out.append(jnp.einsum("mhd,mkd->mkh", qk[rows], vals_sg) + qb[rows][:, None, :])
+    return tuple(out)
+
+
+@pytest.mark.parametrize("h", [1, 3, 4, 8])
+@pytest.mark.parametrize("dv", [16, 64, 67])
+def test_scores_gradient_matches_jax(runs_mats, h, dv):
+    """``sddmm_csr_backward_reference`` and ``_Scores``' gradient (through
+    ``attention_scores``) against ``jax.vjp`` of the score einsum in qk and
+    qb, the port's edge cotangent laid into JAX's bucket slots by edge id;
+    the scores themselves edge by edge."""
+    mat, jmat = runs_mats
+    rng = np.random.default_rng(100 * h + dv)
+    qk = rng.standard_normal((N_ROWS, h, dv)).astype(np.float32)
+    qb = rng.standard_normal((N_ROWS, h)).astype(np.float32)
+    v = rng.standard_normal((N_COLS, dv)).astype(np.float32)
+    g_s = rng.standard_normal((mat.nnz, h)).astype(np.float32)
+    by_eid = np.zeros((int(mat.eid.max()) + 1, h), np.float32)
+    by_eid[mat.eid.numpy()] = g_s
+    want, vjp = jax.vjp(lambda a, b: _jax_bucket_scores(jmat, a, b, jnp.asarray(v)), jnp.asarray(qk), jnp.asarray(qb))
+    cts = tuple(jnp.asarray(by_eid[np.asarray(b.eid)] * (np.asarray(b.val) != 0)[:, :, None]) for b in jmat.fwd.buckets)
+    want_qk, want_qb = vjp(cts)
+    d_qk, d_qb = K.sddmm_csr_backward_reference(mat.row_ptr, mat.col, torch.as_tensor(g_s), torch.as_tensor(v))
+    _close(d_qk, want_qk, what="sddmm_csr_backward_reference d_qk")
+    _close(d_qb, want_qb, what="sddmm_csr_backward_reference d_qb")
+    ts = [torch.as_tensor(qk).requires_grad_(True), torch.as_tensor(qb).requires_grad_(True)]
+    got = K.attention_scores(mat, *ts, torch.as_tensor(v))
+    (got * torch.as_tensor(g_s)).sum().backward()
+    _close(ts[0].grad, want_qk, what="_Scores d_qk")
+    _close(ts[1].grad, want_qb, what="_Scores d_qb")
+    scores = np.zeros_like(by_eid)
+    for b, s in zip(jmat.fwd.buckets, want):
+        keep = np.asarray(b.val) != 0
+        scores[np.asarray(b.eid)[keep]] = np.asarray(s)[keep]
+    _close(got, scores[mat.eid.numpy()], what="scores")
+    deg = torch.diff(mat.row_ptr).numpy()
+    assert (deg[:30] == 0).all() and deg.max() == LONG_DEGREE
+    assert not d_qk.numpy()[deg == 0].any() and not d_qb.numpy()[deg == 0].any()
 
 
 # -- d(values) of the product with learned edge values ---------------------------------
@@ -370,14 +454,17 @@ def test_sharded_scores_equal_single_device(coo, mats, S):
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_launch(mats):
-    """The CUDA wrappers refuse CPU tensors before any build; the
-    dispatchers refuse other devices and mixed ones; more than 8 heads and
-    mismatched shapes are refused, also by the softmax passes."""
+    """The CUDA wrappers refuse CPU tensors before any build (the scores
+    and their gradient too); the dispatchers refuse other devices and mixed
+    ones; more than 8 heads and mismatched shapes are refused, also by the
+    softmax passes."""
     mat, _ = mats
     qk, v = torch.zeros(N_ROWS, 4, 8), torch.zeros(N_COLS, 8)
     scores, g, stats = torch.zeros(mat.nnz, 4), torch.zeros(mat.nnz), torch.zeros(N_ROWS, 4)
     with pytest.raises(ValueError, match="cuda"):
         K.sddmm_csr_cuda(mat.row_ptr, mat.col, qk, v)
+    with pytest.raises(ValueError, match="cuda"):
+        K.sddmm_csr_backward_cuda(mat.row_ptr, mat.col, scores, v)
     with pytest.raises(ValueError, match="cuda"):
         K.softmax_stats_cuda(mat.row_ptr, scores, T)
     with pytest.raises(ValueError, match="cuda"):
@@ -388,6 +475,8 @@ def test_kernel_wrappers_refuse_what_they_cannot_launch(mats):
         K.softmax_apply_backward_cuda(mat.row_ptr, scores, g, stats, T)
     with pytest.raises(ValueError, match="cuda or cpu"):
         K.sddmm_csr(mat.row_ptr, mat.col, qk.to("meta"), v)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        K.sddmm_csr_backward(mat.row_ptr, mat.col, scores, v.to("meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         K.segment_softmax_csr(mat.row_ptr.to("meta"), scores, T)
     with pytest.raises(ValueError, match="cuda or cpu"):

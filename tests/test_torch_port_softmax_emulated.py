@@ -76,6 +76,7 @@ template <class T> T xchg(T v, int src) {
 // a kernel launch: every block, every warp of it in turn, each warp 32 threads
 template <class K> auto Launch(K k, dim3 grid, dim3 block, int = 0, void* = nullptr) {
   return [=](auto... a) {
+    for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx)
         for (unsigned w = 0; w < block.x / 32; ++w) {
@@ -84,7 +85,7 @@ template <class K> auto Launch(K k, dim3 grid, dim3 block, int = 0, void* = null
           W = &warp;
           std::vector<std::thread> ts;
           for (unsigned l = 0; l < 32; ++l)
-            ts.emplace_back([=] { threadIdx = {w * 32 + l, 0, 0}; blockIdx = {bx, by, 0}; k(a...); });
+            ts.emplace_back([=] { threadIdx = {w * 32 + l, 0, 0}; blockIdx = {bx, by, bz}; k(a...); });
           for (auto& t : ts) t.join();
           pthread_barrier_destroy(&warp.bar);
         }
