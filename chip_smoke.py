@@ -136,7 +136,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    (by route), the best checkpoint reloads to the line's test metrics
    within 1e-6; (f) so does the model saved in the reference's ``.pth``
    format and imported with ``import_reference_checkpoint``; (g) a
-   ``utils.profiling.trace`` of 10 steps holds ``spmm_chunk_kernel`` events.
+   ``utils.profiling.trace`` of 10 steps holds ``spmm_chunk_kernel`` events
+   and one ``irt.train.step`` span a step.
    Step median, examples/s, epoch s, ``evaluate`` ms and the six inductive
    NDCG@20 are logged.
 12. the multi-GPU layer (``parallel/``) over NCCL on the same set. (a) The
@@ -269,7 +270,7 @@ from inductive_recommendation_tpu_torch.parallel.collectives import counts as co
 from inductive_recommendation_tpu_torch.parallel.spmm import build_edge_sharded_on_device, place_rows, values_shard
 from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
 from inductive_recommendation_tpu_torch.train.import_reference import import_reference_checkpoint
-from inductive_recommendation_tpu_torch.utils import StepTimer, trace
+from inductive_recommendation_tpu_torch.utils import trace
 from inductive_recommendation_tpu_torch.utils.profiles import dense_profiles
 
 SEED = 0
@@ -2110,10 +2111,10 @@ def split_counts(out_path):
 
 def run_cli(argv, n_layers):
     """``main(argv)`` of the command line, in this process, with its trainer's
-    steps (``StepTimer``), epochs and evaluations timed and its inductive
+    steps (CUDA events around each), epochs and evaluations timed and its inductive
     slices kept; the SpMM launch counts are set to 0 just before and read
     just after. -> dict of what the run printed and measured."""
-    made, timer, epoch_s, eval_ms, slices = {}, StepTimer(), [], [], {}
+    made, step_events, epoch_s, eval_ms, slices = {}, [], [], [], {}
     real_get_trainer = cli.get_trainer
 
     def instrumented(config, dataset, model, **mesh):
@@ -2122,9 +2123,11 @@ def run_cli(argv, n_layers):
         real_inductive = trainer.inductive_eval
 
         def step(*batch):
-            timer.start()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             loss = real_step(*batch)
-            timer.stop(loss)
+            end.record()
+            step_events.append((start, end))
             return loss
 
         def epoch():
@@ -2168,10 +2171,12 @@ def run_cli(argv, n_layers):
     for name in ("step", "train_one_epoch", "inductive_eval"):
         delattr(trainer, name)
     del trainer.evaluator.evaluate
+    step_s = [start.elapsed_time(end) / 1e3 for start, end in step_events]
     return {
         "trainer": trainer, "result": result, "line": printed.getvalue().strip().splitlines()[-1],
         "launches": launches, "routes": {k: v for k, v in routes.items() if v}, "run_s": run_s,
-        "step_s": list(timer.times), "step_p50_ms": timer.p50_ms, "epoch_s": epoch_s, "evaluate_ms": eval_ms,
+        "step_s": step_s, "step_p50_ms": statistics.median(step_s) * 1e3 if step_s else float("nan"),
+        "epoch_s": epoch_s, "evaluate_ms": eval_ms,
         "inductive_ndcg20": {tag: m["NDCG"][20] for tag, m in slices.items()},
         "products_per_get_rep": 1 + n_layers,
     }
@@ -2270,21 +2275,27 @@ def front_door_phase(card, per_step, rng, work) -> dict:
     trainer = run["trainer"]
 
     # (g) a trace of 10 steps of the run's trainer
-    timer, logdir = StepTimer(), os.path.join(work, "trace")
+    step_s, logdir = [], os.path.join(work, "trace")
     with trace(logdir):
         for _ in range(TRACE_STEPS):
-            timer.start()
-            timer.stop(trainer.step())
+            t0 = time.perf_counter()
+            trainer.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
     with open(os.path.join(logdir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     chunks = [e for e in events if e.get("cat") == "kernel" and "spmm_chunk_kernel" in e.get("name", "")]
     if not chunks:
         raise AssertionError("the trace holds no spmm_chunk_kernel launch (spmm_csr_chunks)")
+    spans = sum(e.get("name") == "irt.train.step" for e in events)
+    if spans != TRACE_STEPS:
+        raise AssertionError(f"the trace holds {spans} irt.train.step spans for {TRACE_STEPS} steps")
     out["trace"] = {"steps": TRACE_STEPS, "spmm_chunk_kernel_events": len(chunks), "kernel_events":
-                    sum(e.get("cat") == "kernel" for e in events), "step_p50_ms": timer.p50_ms}
+                    sum(e.get("cat") == "kernel" for e in events),
+                    "step_p50_ms": statistics.median(step_s) * 1e3}
     log(f"trace of {TRACE_STEPS} steps: {len(chunks)} spmm_chunk_kernel events (launched by spmm_csr_chunks; "
         f"{sum(per_step.values()) // 2 * TRACE_STEPS} expected), {out['trace']['kernel_events']} kernel events; "
-        f"StepTimer p50 {timer.p50_ms:.3f} ms")
+        f"synchronised step p50 {out['trace']['step_p50_ms']:.3f} ms")
     return out
 
 

@@ -14,7 +14,14 @@ trainer.py:146-253).
 - under a mesh (``parallel/mesh.py``) every rank holds the scoring state and
   takes its slice of each user batch; the metric partial sums are
   all-reduced once an evaluation, and ``recommend`` scores item-sharded with
-  a per-rank top-k and a k-way merge (``parallel/eval.py``).
+  a per-rank top-k and a k-way merge (``parallel/eval.py``);
+- its spans (``utils.profiling.span``): ``irt.eval.evaluator_build`` (the
+  padded exclusion lists), ``irt.eval.pass`` (one ``evaluate``) holding
+  ``irt.eval.refresh`` (the scoring state) and each batch's
+  ``irt.eval.score``, ``irt.eval.topk`` (mask and top-k) and
+  ``irt.eval.metric_sums``; ``irt.eval.buckets`` and
+  ``irt.eval.ground_truth`` only where they are built, not where a cache
+  answers, so their count is the caches' misses.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from inductive_recommendation_tpu_torch.ops.topk import masked_topk
 from inductive_recommendation_tpu_torch.parallel.collectives import all_reduce
 from inductive_recommendation_tpu_torch.parallel.eval import sharded_recommend_all_users
 from inductive_recommendation_tpu_torch.utils.device import resolve_device
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
 def _format_results(metrics, topks):
@@ -43,6 +51,7 @@ def _format_results(metrics, topks):
 
 
 class Evaluator:
+    @span("irt.eval.evaluator_build")
     def __init__(self, dataset, topks, test_batch_size=512, device=None, mesh=None):
         """Runs on the CUDA card unless ``device`` says otherwise; raises when
         no device is given and there is no card. ``mesh``: a ('data',
@@ -130,6 +139,13 @@ class Evaluator:
                 break
         if cache_key is not None and cache_key in self._gt_cache:
             return self._gt_cache[cache_key]
+        with span("irt.eval.ground_truth"):
+            out = self._gt_build(eval_data)
+        if cache_key is not None:
+            self._gt_cache[cache_key] = out
+        return out
+
+    def _gt_build(self, eval_data):
         lengths = np.fromiter((len(l) for l in eval_data), dtype=np.int64, count=len(eval_data))
         m = max(1, int(lengths.max(initial=0)))
         pad_to = 1 << (m - 1).bit_length()
@@ -137,15 +153,14 @@ class Evaluator:
         sorted_gt = pad_to > 256
         if sorted_gt:
             gt_rows = torch.sort(gt_rows, dim=1).values
-        out = (gt_rows, torch.as_tensor(lengths, dtype=torch.int32, device=self.device), sorted_gt)
-        if cache_key is not None:
-            self._gt_cache[cache_key] = out
-        return out
+        return gt_rows, torch.as_tensor(lengths, dtype=torch.int32, device=self.device), sorted_gt
 
+    @span("irt.eval.pass")
     @torch.no_grad()
     def _evaluate_on_device(self, model, params, stage, banned_items, eval_data):
         banned = self._banned(banned_items)
-        state = model.make_scoring_state(params)
+        with span("irt.eval.refresh"):
+            state = model.make_scoring_state(params)
         gt_rows, gt_len, sorted_gt = self._gt_device(eval_data)
         topks = tuple(self.topks)
         B = self.test_batch_size
@@ -161,13 +176,16 @@ class Evaluator:
             n_valid = torch.zeros((), dtype=torch.float32, device=self.device)
             for i in range(lo, perm.shape[0], B):
                 users = perm[i : i + b]
-                scores = model.score(state, users)
-                rec = masked_topk(scores, self.k_max, exclude_idx=excl_rows[i : i + b], banned_mask=banned)[1]
-                s, v = batch_metric_sums(
-                    rec, gt_rows[users], gt_len[users], slots[i : i + b] < n_real, topks, sorted_gt=sorted_gt
-                )
-                acc += s
-                n_valid += v
+                with span("irt.eval.score"):
+                    scores = model.score(state, users)
+                with span("irt.eval.topk"):
+                    rec = masked_topk(scores, self.k_max, exclude_idx=excl_rows[i : i + b], banned_mask=banned)[1]
+                with span("irt.eval.metric_sums"):
+                    s, v = batch_metric_sums(
+                        rec, gt_rows[users], gt_len[users], slots[i : i + b] < n_real, topks, sorted_gt=sorted_gt
+                    )
+                    acc += s
+                    n_valid += v
             sums.append(acc)
             valids.append(n_valid)
         sums, valids = torch.stack(sums), torch.stack(valids)
@@ -182,6 +200,12 @@ class Evaluator:
         with geometric cuts 64, 256, 1024, ... over the list lengths."""
         if stage in self._bucket_cache:
             return self._bucket_cache[stage]
+        with span("irt.eval.buckets"):
+            buckets = self._bucket_build(stage)
+        self._bucket_cache[stage] = buckets
+        return buckets
+
+    def _bucket_build(self, stage):
         ds = self.dataset
         n_users, n_items = ds.n_users, ds.n_items
         B = self.test_batch_size
@@ -196,15 +220,13 @@ class Evaluator:
         else:  # 'train': no exclusion (reference trainer.py:155-160 masks only val/test)
             perm = np.arange(n_users, dtype=np.int64)
             perm = np.concatenate([perm, np.zeros((-n_users) % B, dtype=np.int64)])
-            buckets = [
+            return [
                 (
                     torch.as_tensor(perm, device=self.device),
                     n_users,
                     torch.full((len(perm), 1), n_items, dtype=torch.int32, device=self.device),
                 )
             ]
-            self._bucket_cache[stage] = buckets
-            return buckets
 
         buckets = []
         order = np.argsort(lengths, kind="stable").astype(np.int64)
@@ -222,32 +244,26 @@ class Evaluator:
             perm = np.concatenate([members, np.zeros((-len(members)) % B, dtype=np.int64)])
             perm_dev = torch.as_tensor(perm, device=self.device)
             buckets.append((perm_dev, len(members), excl_full[perm_dev][:, :w].contiguous()))
-        self._bucket_cache[stage] = buckets
         return buckets
 
     def inductive_eval(self, model, params, n_old_users, n_old_items, verbose=True):
         """The six-slice cold-start protocol (reference trainer.py:212-253)."""
         ds = self.dataset
         test = ds.test_data
+        ban_new, ban_old = np.arange(n_old_items, ds.n_items), np.arange(n_old_items)
+        with span("irt.eval.ground_truth"):
+            slices = [
+                ("All users and all items", [list(t) for t in test], None),
+                ("Old users and all items", [list(t) if u < n_old_users else [] for u, t in enumerate(test)], None),
+                ("New users and all items", [[] if u < n_old_users else list(t) for u, t in enumerate(test)], None),
+                ("All users and old items", [[i for i in t if i < n_old_items] for t in test], ban_new),
+                ("All users and new items", [[i for i in t if i >= n_old_items] for t in test], ban_old),
+                ("Old users and old items",
+                 [[i for i in t if i < n_old_items] if u < n_old_users else [] for u, t in enumerate(test)], ban_new),
+            ]
         out = {}
-
-        def run(tag, eval_data, banned=None):
-            results, metrics = self.evaluate(model, params, "test", banned_items=banned, eval_data=eval_data)
+        for tag, eval_data, banned in slices:
+            results, out[tag] = self.evaluate(model, params, "test", banned_items=banned, eval_data=eval_data)
             if verbose:
                 print("{:s} result. {:s}".format(tag, results))
-            out[tag] = metrics
-
-        run("All users and all items", [list(t) for t in test])
-        old_u = [list(t) if u < n_old_users else [] for u, t in enumerate(test)]
-        run("Old users and all items", old_u)
-        new_u = [[] if u < n_old_users else list(t) for u, t in enumerate(test)]
-        run("New users and all items", new_u)
-        old_i = [[i for i in t if i < n_old_items] for t in test]
-        run("All users and old items", old_i, banned=np.arange(n_old_items, ds.n_items))
-        new_i = [[i for i in t if i >= n_old_items] for t in test]
-        run("All users and new items", new_i, banned=np.arange(n_old_items))
-        old_uo = [
-            [i for i in t if i < n_old_items] if u < n_old_users else [] for u, t in enumerate(test)
-        ]
-        run("Old users and old items", old_uo, banned=np.arange(n_old_items, ds.n_items))
         return out

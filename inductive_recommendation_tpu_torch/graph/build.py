@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from inductive_recommendation_tpu_torch.utils.profiling import span
+
 
 def _dedupe_edges(train_array: np.ndarray) -> np.ndarray:
     """Unique (user, item) pairs, sorted (set semantics)."""
@@ -117,6 +119,7 @@ def row_l1_normalize_values(row, col, n_nodes: int, counts=None):
     return (counts / rowsum[row]).astype(np.float32)
 
 
+@span("irt.graph.feat_matrix")
 def build_feat_matrix(
     train_array: np.ndarray,
     n_users: int,

@@ -47,6 +47,7 @@ import torch
 
 from inductive_recommendation_tpu_torch.graph.build import build_feat_matrix
 from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, csr_on_device, with_annealed_values
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
 def _draw_generator(seed: int, counter: int, device) -> torch.Generator:
@@ -114,6 +115,7 @@ class ViewEngine:
         pos = torch.clamp(torch.searchsorted(self.train_keys, keys), max=self.n_pairs - 1)
         return pos, self.train_keys[pos] == keys
 
+    @span("irt.epoch_end.view_build")
     def make_view_on_device(self, keep_pair_mask=None, add_pairs=None, add_valid=None) -> CsrSpMM:
         """The view CSR of the train pairs ``keep_pair_mask`` keeps (all by
         default) and the injected ``add_pairs``, with the semantics of the

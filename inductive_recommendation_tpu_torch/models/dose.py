@@ -43,6 +43,7 @@ from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mea
 from inductive_recommendation_tpu_torch.ops.cosine_topk import blockwise_cosine_topk
 from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed, spmm_csr_dropout
 from inductive_recommendation_tpu_torch.train.losses import info_nce
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
 class _DOSEBase(IGCN):
@@ -155,6 +156,7 @@ class _DOSEBase(IGCN):
         self._initial_counter_base = init_base
         self._views_updated = updated
 
+    @span("irt.epoch_end.select")
     @torch.no_grad()
     def _cos_pairs(self, params, k, negate_items, restrict=None):
         """int64 [k', 2] top (u, i) pairs by cosine similarity (items negated

@@ -32,6 +32,7 @@ from inductive_recommendation_tpu_torch.ops import (
     with_annealed_values,
 )
 from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed, spmm_csr_dropout
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
 def select_core(dataset, feature_ratio, ranking_metric):
@@ -89,6 +90,7 @@ class IGCN(BasicModel):
         self.feat = with_annealed_values(self._feat_base, self._feat_row_sum, self.alpha)
         self.norm_adj = build_norm_adj(dataset, self.device)
 
+    @span("irt.graph.attach")
     def attach_dataset(self, dataset):
         """Inductive protocol: rebuild the graph layouts from a new dataset
         (train plus new interactions) and keep the core maps and the trained
@@ -102,6 +104,7 @@ class IGCN(BasicModel):
         self.n_users, self.n_items = dataset.n_users, dataset.n_items
         self._build_graph_buffers(dataset)
 
+    @span("irt.epoch_end.anneal")
     def feat_mat_anneal(self):
         """alpha *= delta, and the feature values re-weighted (model.py:4127-4134)."""
         self.alpha *= self.delta
@@ -121,6 +124,7 @@ class IGCN(BasicModel):
             return spmm_csr_dropout(self.feat, emb, dropout_seed(generator), self.dropout)
         return spmm_csr(self.feat, emb)
 
+    @span("irt.model.get_rep")
     def get_rep(self, params, training=False, generator=None):
         x0 = self.inductive_rep_layer(params, training=training, generator=generator)
         return propagate_mean(self.norm_adj, x0, self.n_layers)
@@ -155,5 +159,6 @@ class IGCN(BasicModel):
 class IMF(IGCN):
     """Inductive MF: the inductive rep layer alone, no graph convolution."""
 
+    @span("irt.model.get_rep")
     def get_rep(self, params, training=False, generator=None):
         return self.inductive_rep_layer(params, training=training, generator=generator)

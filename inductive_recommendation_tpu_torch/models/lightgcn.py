@@ -9,8 +9,10 @@ from torch import nn
 from inductive_recommendation_tpu_torch.graph import sym_normalized_adjacency
 from inductive_recommendation_tpu_torch.models.base import BasicModel, l2_sq_rows
 from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mean
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
+@span("irt.graph.norm_adj")
 def build_norm_adj(dataset, device):
     """The sym-normalized adjacency (model.py:89-98) as a CSR layout on
     ``device``; every GCN-style model shares it."""

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from inductive_recommendation_tpu_torch.ops import _build
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 # Edges per warp in the kernel's first launch: kEdgesPerChunk in
 # csrc/spmm_csr.cu, which must equal it.
@@ -114,6 +115,7 @@ def _one_side(row, col, val, eid, n_rows, n_cols, device, **flags) -> CsrSpMM:
     )
 
 
+@span("irt.graph.csr")
 def build_csr_spmm(row, col, val, shape, symmetric: bool = False, device="cpu") -> CsrSpMM:
     """Host-side constructor from COO arrays (numpy), placed on ``device``;
     with ``symmetric=False`` the transpose layout is built beside it."""
@@ -362,9 +364,11 @@ reset_launch_counts()
 # -- products with autograd ------------------------------------------------------
 
 
+@span("irt.ops.spmm")
 def _product(mat: CsrSpMM, x: torch.Tensor, edge_scale=None, drop=None) -> torch.Tensor:
     """(A o scale) @ x, or (A o M) @ x under ``drop`` = (seed, p): the kernel
-    for a CUDA ``x`` (or it raises), the plain version for a CPU one."""
+    for a CUDA ``x`` (or it raises), the plain version for a CPU one. Every
+    product, forward or backward, is one ``irt.ops.spmm`` span."""
     val = mat.val if edge_scale is None else mat.val * edge_scale[mat.eid]
     if x.device.type == "cuda":
         return spmm_csr_cuda(mat, x.contiguous(), val.contiguous(), drop)

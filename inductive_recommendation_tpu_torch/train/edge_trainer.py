@@ -62,7 +62,7 @@ from inductive_recommendation_tpu_torch.parallel.step import (
     make_edge_sharded_ngcf_step,
     make_edge_sharded_sgl_step,
 )
-from inductive_recommendation_tpu_torch.train.trainer import BasicTrainer, _epoch_mean
+from inductive_recommendation_tpu_torch.train.trainer import BasicTrainer
 
 #: DOSE variants -> (contrastive mode, the view keys feeding the loss), JAX
 #: edge_trainer.py:55-77
@@ -356,9 +356,7 @@ class EdgeShardedTrainer(BasicTrainer):
     # -- the loop and evaluation -----------------------------------------------
     def train_one_epoch(self):
         self._check_dataset_unchanged()
-        loss = _epoch_mean([self.step() for _ in range(self.steps_per_epoch)])
-        self.epoch_end()
-        return loss
+        return super().train_one_epoch()
 
     def epoch_end(self):
         """The single-device trainer's epoch end: the anneal (IGCN, DOSE,

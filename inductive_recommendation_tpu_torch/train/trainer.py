@@ -59,6 +59,7 @@ from inductive_recommendation_tpu_torch.parallel.mesh import gather_rows, local_
 from inductive_recommendation_tpu_torch.parallel.step import gather_negatives, make_data_step, mean_loss_on_slice
 from inductive_recommendation_tpu_torch.train.checkpoint import JAX_FORMAT, load_checkpoint, save_checkpoint
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, multinomial_ll_loss
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 OPTIMIZERS = {"Adam": torch.optim.Adam, "SGD": torch.optim.SGD}
 
@@ -171,33 +172,45 @@ class BasicTrainer:
         whole batch's (contrastive losses)."""
         raise NotImplementedError
 
-    def loss(self, *batch) -> torch.Tensor:
-        """The loss of one batch, with its autograd graph: a freshly sampled
-        one unless given."""
-        return self.batch_loss(self.params, *(batch or self.sample()))
-
     def _local_loss(self):
         """Data mode: this rank's term of the global loss (``make_data_step``)."""
         return mean_loss_on_slice(lambda full, *b: self.batch_loss(full, *b, negatives=gather_negatives),
                                   self.batch_size)
 
     def step(self, *batch) -> torch.Tensor:
-        """One optimizer step; returns the batch loss as a device scalar."""
+        """One optimizer step on ``batch`` (a freshly sampled one unless
+        given); returns the batch loss as a device scalar. On one device its
+        four phases are the spans ``irt.train.sample``, ``forward``,
+        ``backward`` and ``optimizer`` inside ``irt.train.step``."""
         if self.data_parallel:
             if self._mesh_step is None:
                 self._mesh_step = make_data_step(lambda: self.optimizer, self.params, self.batch_size, self.mesh,
                                                  self._local_loss(), prepare=self._prepare_batch)
             return self._mesh_step(*(batch or self.sample()))
-        loss = self.loss(*batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        with span("irt.train.step"):
+            with span("irt.train.sample"):
+                batch = batch or self.sample()
+            with span("irt.train.forward"):
+                loss = self.batch_loss(self.params, *batch)
+            with span("irt.train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("irt.train.optimizer"):
+                self.optimizer.step()
+            return loss.detach()
 
     _prepare_batch = None
 
     def train_one_epoch(self) -> float:
-        return _epoch_mean([self.step() for _ in range(self.steps_per_epoch)])
+        losses = [self.step() for _ in range(self.steps_per_epoch)]
+        with span("irt.train.epoch_end"):
+            loss = _epoch_mean(losses)
+            self.epoch_end()
+        return loss
+
+    def epoch_end(self):
+        """The model's work at the end of an epoch, after the epoch's loss is
+        fetched: none here."""
 
     # -- logging (trainer.py:51-56) -----------------------------------------
     def record(self, writer, stage, metrics, epoch=None):
@@ -413,10 +426,8 @@ class SGLTrainer(ContrastiveBPRTrainer):
                                      negatives=negatives)
         return self._objective(out)
 
-    def train_one_epoch(self):
-        loss = super().train_one_epoch()
+    def epoch_end(self):
         self.model.update_aug_adj()
-        return loss
 
 
 class HALFTrainer(SGLTrainer):
@@ -581,10 +592,8 @@ class IGCNTrainer(BasicTrainer):
         u_r, p_r, n_r, l2 = out[:4]
         return bpr_loss(u_r, p_r, n_r) + self.l2_reg * l2.mean() + self.aux_reg * aux
 
-    def train_one_epoch(self):
-        loss = super().train_one_epoch()
+    def epoch_end(self):
         self.model.feat_mat_anneal()
-        return loss
 
 
 class DOSEaugTrainer(IGCNTrainer):
@@ -607,10 +616,9 @@ class DOSEaugTrainer(IGCNTrainer):
     def _objective(self, out, aux):
         return super()._objective(out, aux) + self.contrastive_reg * out[4].mean()
 
-    def train_one_epoch(self):
-        loss = super().train_one_epoch()
+    def epoch_end(self):
+        super().epoch_end()
         self.model.update_aug_adj(self._model_params())
-        return loss
 
 
 class DOSEdropTrainer(DOSEaugTrainer):

@@ -1,23 +1,36 @@
-"""Tracing and timing (counterpart of
-``inductive_recommendation_tpu/utils/profiling.py``).
+"""Tracing (counterpart of ``inductive_recommendation_tpu/utils/profiling.py``).
 
 - ``trace(logdir)``: ``torch.profiler`` over the CPU and, where there is a
   card, CUDA activity; on exit the Chrome trace is written to
   ``logdir/trace.json`` (open it in Perfetto or ``chrome://tracing``);
-- ``StepTimer``: host-clock step times that end only once the device has
-  finished (``torch.cuda.synchronize`` of the given tensor's device);
+- ``span(name)``: a named range of the program's own layers, as a context
+  manager (``with span("irt.train.step"):``) or a decorator
+  (``@span("irt.model.get_rep")``). While a profiler records, it is a
+  ``torch.profiler.record_function`` range, on the same clock as the
+  kernels it launches, so each idle gap of the device falls under the span
+  the host was in. While none records, it costs one check and enters a
+  shared null context: no profiler op, no allocation, no device call;
 - ``nan_check``: the names of the non-finite floating leaves of a
   ``{name: tensor}`` dict or a nested tree of dicts and lists.
+
+Span names are the layer path, prefixed ``irt.``: ``irt.train.*`` (the
+step's sample, forward, backward and optimizer, the epoch end),
+``irt.epoch_end.*`` (anneal, selection, view build), ``irt.graph.*``
+(``attach_dataset``'s layouts), ``irt.model.get_rep``, ``irt.ops.spmm``
+(each sparse product) and ``irt.eval.*`` (the evaluator's build, each pass,
+its refresh, buckets and ground truth, and each batch's score, top-k and
+metric sums).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
 
-import numpy as np
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 @contextlib.contextmanager
@@ -33,28 +46,56 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-class StepTimer:
-    def __init__(self):
-        self.times = []
-        self._t0 = None
+class NullSpan:
+    """What ``span(name)`` returns while no profiler records: a context
+    manager that does nothing, made once a name and shared. As a decorator
+    it gives a function that checks at every call whether a profiler
+    records."""
 
-    def start(self):
-        self._t0 = time.perf_counter()
+    __slots__ = ("name",)
 
-    def stop(self, sync_value=None):
-        """Ends a step; with ``sync_value`` (a tensor), once its device has
-        finished the work queued so far."""
-        if isinstance(sync_value, torch.Tensor) and sync_value.is_cuda:
-            torch.cuda.synchronize(sync_value.device)
-        self.times.append(time.perf_counter() - self._t0)
+    def __init__(self, name: str):
+        self.name = name
 
-    @property
-    def mean_ms(self):
-        return 1e3 * float(np.mean(self.times)) if self.times else float("nan")
+    def __enter__(self):
+        return None
 
-    @property
-    def p50_ms(self):
-        return 1e3 * float(np.median(self.times)) if self.times else float("nan")
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _profiler_enabled():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return spanned
+
+
+class _Recording(torch.profiler.record_function):
+    """A ``record_function`` range that decorates as ``NullSpan`` does, so a
+    function decorated while a profiler records is not bound to it."""
+
+    def __call__(self, fn):
+        return NullSpan(self.name)(fn)
+
+
+_NULL_SPANS: dict[str, NullSpan] = {}
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records,
+    else the name's shared ``NullSpan``."""
+    if _profiler_enabled():
+        return _Recording(name)
+    null = _NULL_SPANS.get(name)
+    if null is None:
+        null = _NULL_SPANS[name] = NullSpan(name)
+    return null
 
 
 def nan_check(tree, name="tree"):

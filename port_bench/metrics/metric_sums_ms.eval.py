@@ -1,0 +1,9 @@
+"""Evaluation: the host time inside the program's span
+``irt.eval.metric_sums`` (each batch's metric sums at every cutoff), in
+ms a traced pass (a slice's pass in the inductive cell)."""
+
+from port_bench.core import spans
+
+
+def read(run):
+    return spans.ms_per_unit(run.trace, "irt.eval.metric_sums")

@@ -2,7 +2,7 @@
 package's ``main.py`` and trainer: ``--list``, ``--preprocess``, the ItemKNN
 and IGCN rows of the Gowalla grid on the CPU, the summary writer's tags and
 values, the train-split evaluation switch, SGD, and ``init_run``,
-``AverageMeter``, ``nan_check``, ``StepTimer`` and ``trace``.
+``AverageMeter``, ``nan_check``, ``trace`` and the spans it records.
 
 Both sides read the same files, written from numpy seeds. The ItemKNN row
 (no training) must print JSON values within 1e-6 of JAX's; the writer's
@@ -32,7 +32,8 @@ from inductive_recommendation_tpu_torch import main as cli
 from inductive_recommendation_tpu_torch.models import params_from_jax
 from inductive_recommendation_tpu_torch.train import AverageMeter, OPTIMIZERS
 from inductive_recommendation_tpu_torch.train import trainer as trainer_module
-from inductive_recommendation_tpu_torch.utils import StepTimer, init_run, nan_check, trace
+from inductive_recommendation_tpu_torch.ops import build_csr_spmm, spmm_csr
+from inductive_recommendation_tpu_torch.utils import init_run, nan_check, trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRIDS = ["gowalla", "yelp", "amazon", "alibaba", "ml"]
@@ -312,12 +313,12 @@ def test_nan_check_timer_and_trace(tmp_path):
             "ids": torch.arange(3), "b": np.array([np.inf])}
     assert nan_check(tree, "params") == ["params.layers.0.w", "params.b"]
     assert nan_check({"a": torch.ones(2)}) == []
-    timer = StepTimer()
     with trace(str(tmp_path / "trace")):
+        mat = build_csr_spmm([0, 1, 1], [1, 0, 2], [1.0, 2.0, 3.0], (2, 3))
         for _ in range(3):
-            timer.start()
-            out = torch.ones(64, 64) @ torch.ones(64, 64)
-            timer.stop(out)
-    assert len(timer.times) == 3 and timer.p50_ms > 0 and timer.mean_ms > 0
+            out = spmm_csr(mat, torch.ones(3, 4)) + torch.ones(64, 64)[:2, :4] @ torch.ones(4, 4)
+    assert torch.equal(out, torch.tensor([[5.0] * 4, [9.0] * 4]))
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    names = [e.get("name", "") for e in events if e.get("ph") == "X"]
+    assert names.count("irt.graph.csr") == 1 and names.count("irt.ops.spmm") == 3
