@@ -31,7 +31,18 @@ Phases, each of which raises on failure (the exit code is then not 0):
 5. inductive: ``attach_dataset`` onto the set grown by 1,000 new users and
    1,000 new items, then ``inductive_eval`` over its six slices;
 6. times: ``get_rep`` and ``evaluate``, and one ``evaluate`` under
-   ``torch.profiler`` (device time by kernel, device busy share);
+   ``torch.profiler`` (device time by kernel, device busy share).
+   Then the evaluation's metric-sums kernel (``ops/csrc/metric_sums.cu``,
+   ``metric_sums_phase``) at the eval's shape (512 users, top 100, 21
+   cutoffs; ground-truth rows of 512 sorted, the binary search, and of 256
+   unsorted, the staged compare) and on edge cases (a batch not a multiple
+   of a block's users, cutoffs over K, one cutoff, 64 cutoffs over K 300):
+   its sums against the plain version on the card (within 1e-5 of max(1,
+   |sum|)) and on the CPU (within 1e-6), the valid count exactly, two
+   launches bitwise; no synchronisation in the call
+   (``torch.cuda.set_sync_debug_mode("error")``), the wrapper's count two
+   launches a call; its time (single, windowed, device) beside the plain
+   version's and the byte bound; and its launches in an ``evaluate``;
 7. train: IGCN's training path on a fresh model. (a) On the Gowalla-scale
    layouts, the kernel against its plain version: the transpose product, the
    dropout product (p 0.3) forward and transpose, and the gradient of the
@@ -235,6 +246,7 @@ from inductive_recommendation_tpu_torch import native
 from inductive_recommendation_tpu_torch.configs import get_gowalla_config
 from inductive_recommendation_tpu_torch.data import BasicDataset, get_dataset, quick_synthetic_dataset
 from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
+from inductive_recommendation_tpu_torch.eval import device_metrics
 from inductive_recommendation_tpu_torch.graph import build_feat_matrix, sym_normalized_adjacency
 from inductive_recommendation_tpu_torch.graph.views import build_aug_feat_csr
 from inductive_recommendation_tpu_torch.models import params_from_jax
@@ -394,9 +406,11 @@ def log(*args):
 
 
 def reset_launch_counts():
-    """Every kernel's launch counts to 0: the SpMM's and the attention kernels'."""
+    """Every kernel's launch counts to 0: the SpMM's, the attention kernels'
+    and the metric sums'."""
     reset_spmm_counts()
     attention_csr.reset_launch_counts()
+    device_metrics.batch_metric_sums_cuda.launches = 0
 
 
 def launches_by_route() -> dict:
@@ -1382,8 +1396,8 @@ def zoo_phase(ds, card, rng) -> dict:
     # NeuMF: its three phases, one epoch each, through train()
     t = trainer_of("NeuMF", n_epochs=3, mf_pretrain_epochs=1, mlp_pretrain_epochs=1, val_interval=1)
     archs = []
-    real_loss = t.loss
-    t.loss = lambda: (archs.append(t.model.arch), real_loss())[1]
+    real_loss = t.batch_loss  # one call a step
+    t.batch_loss = lambda *batch, **kw: (archs.append(t.model.arch), real_loss(*batch, **kw))[1]
     models["NeuMF"] = zoo_model_run(
         "NeuMF", t, ds, evaluator(t.evaluator.test_batch_size), card, t.batch_size * (1 + t.neg_ratio),
         run=lambda: t.train(verbose=False),
@@ -1437,6 +1451,108 @@ def zoo_phase(ds, card, rng) -> dict:
                             "test_ndcg20": metrics["NDCG"][20]}
     log(f"Popularity on {card}: evaluate {eval_ms:.1f} ms, test NDCG@20 {metrics['NDCG'][20]:.6f} = host oracle's")
     return {"rows": rows, "models": models}
+
+
+METRIC_TOPKS = (1, *range(5, 101, 5))  # the eval cell's 21 cutoffs
+METRIC_KERNEL_NAMES = ("metric_rows_kernel", "metric_sums_kernel")
+
+
+def metric_case(rng, B, K, width, sorted_gt):
+    """A batch for the metric sums on the card: distinct ranked ids, ground
+    truth of every length up to ``width`` (half of it from the user's own
+    ranking, so that every rank can hit) padded with the sentinel, 15% of
+    the users padding."""
+    rec = np.stack([rng.choice(N_ITEMS, size=K, replace=False) for _ in range(B)])
+    lens = rng.integers(0, width + 1, B)
+    lens[0], lens[-1] = 0, width
+    rows = np.full((B, width), N_ITEMS, dtype=np.int32)
+    for u, n in enumerate(lens):
+        own = rng.choice(rec[u], size=min(n // 2, K), replace=False)
+        rest = np.setdiff1d(np.arange(N_ITEMS), own)[rng.choice(N_ITEMS - own.size, size=n - own.size, replace=False)]
+        rows[u, :n] = np.concatenate([own, rest])
+    if sorted_gt:
+        rows.sort(axis=1)
+    valid = rng.random(B) < 0.85
+    return (torch.as_tensor(rec, device="cuda"), torch.as_tensor(rows, device="cuda"),
+            torch.as_tensor(lens.astype(np.int32), device="cuda"), torch.as_tensor(valid, device="cuda"))
+
+
+def check_metric_sums(what, case, topks, sorted_gt) -> dict:
+    """The kernel on one batch: two launches bitwise equal, the sums within
+    REL_TOL * max(1, max |sum|) of the plain version on the card and within
+    1e-6 (relative and absolute) of it on the CPU, the valid count exactly."""
+    got = twice(what, lambda: device_metrics.batch_metric_sums_cuda(*case, topks, sorted_gt))
+    want = device_metrics.batch_metric_sums_reference(*case, topks, sorted_gt)
+    err = close(got[0], want[0], f"{what}: sums vs the plain version on the card")
+    want_cpu = device_metrics.batch_metric_sums_reference(*(t.cpu() for t in case), topks, sorted_gt)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want_cpu[0].numpy(), rtol=1e-6, atol=1e-6, err_msg=what)
+    if not (float(got[1]) == float(want[1]) == float(want_cpu[1])):
+        raise AssertionError(f"{what}: valid count {float(got[1])}, plain {float(want[1])} / {float(want_cpu[1])}")
+    return {"max_abs_err": err, "max_abs_err_cpu": float((got[0].cpu() - want_cpu[0]).abs().max())}
+
+
+def metric_sums_phase(card, rng) -> dict:
+    """The evaluation's metric-sums kernel (``ops/csrc/metric_sums.cu``) on
+    the card: edge cases, then the eval cell's shape by both membership
+    routes, each checked (``check_metric_sums``); no synchronisation left in
+    the call; the wrapper's count; times beside the plain version's and the
+    bound. Returns the shape's numbers by route."""
+    rng = np.random.default_rng(SEED) if rng is None else rng
+    edge_cases = {
+        "37 users, K 25, cutoffs over K, sorted": (37, 25, (1, 5, 20, 30), 300, True),
+        "37 users, K 25, cutoffs over K, staged": (37, 25, (1, 5, 20, 30), 64, False),
+        "one cutoff": (9, 40, (20,), 128, False),
+        "rows over one staged tile": (6, 50, (1, 10, 50), 600, False),
+        "64 cutoffs, K 300": (7, 300, tuple(range(1, 257, 4)), 512, True),
+    }
+    for what, (B, K, topks, width, sorted_gt) in edge_cases.items():
+        check_metric_sums(what, metric_case(rng, B, K, width, sorted_gt), topks, sorted_gt)
+    log(f"metric sums: {len(edge_cases)} edge cases against the plain version (card and CPU), bitwise repeatable")
+    rows = {}
+    for route, width, sorted_gt in (("binary_search", 512, True), ("staged_compare", 256, False)):
+        case = metric_case(rng, TEST_BATCH, 100, width, sorted_gt)
+        row = {"route": route, "B": TEST_BATCH, "K": 100, "gt_width": width, "cutoffs": len(METRIC_TOPKS),
+               **check_metric_sums(route, case, METRIC_TOPKS, sorted_gt)}
+
+        def kernel():
+            return device_metrics.batch_metric_sums_cuda(*case, METRIC_TOPKS, sorted_gt)
+
+        def plain():
+            return device_metrics.batch_metric_sums_reference(*case, METRIC_TOPKS, sorted_gt)
+
+        kernel()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")  # any synchronising call raises
+        try:
+            for _ in range(3):
+                device_metrics.batch_metric_sums(*case, METRIC_TOPKS, sorted_gt)
+            row["launches_per_call"] = device_metrics.batch_metric_sums_cuda.launches / 3
+            try:
+                plain()
+                row["plain_synchronises"] = False
+            except RuntimeError:
+                row["plain_synchronises"] = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if row["launches_per_call"] != 2:
+            raise AssertionError(f"{route}: {row['launches_per_call']} launches a call counted, not 2")
+        row["ms"], row["plain_ms"] = median_ms(kernel), median_ms(plain)
+        row["ms_windowed"], row["plain_ms_windowed"] = windowed_ms(kernel, plain)
+        n_bytes = sum(t.numel() * t.element_size() for t in case) + 4 * (3 * len(METRIC_TOPKS) + 1)
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 0.0)
+        row["kernel_device_ms"] = kernel_device_ms(kernel, kernels=METRIC_KERNEL_NAMES)
+        row["plain_device_ms_and_launches"] = device_ms_per_call(plain)
+        row["clocks_after"] = card_clocks()
+        log(f"metric sums, {route} (B {TEST_BATCH}, K 100, rows of {width}, {len(METRIC_TOPKS)} cutoffs) on {card}: "
+            f"max abs err {row['max_abs_err']:.3g} (card plain), {row['max_abs_err_cpu']:.3g} (CPU plain); no "
+            f"synchronisation (the plain version synchronises: {row['plain_synchronises']}); single calls: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; windows of 10: kernel {row['ms_windowed']:.4f} ms, "
+            f"plain {row['plain_ms_windowed']:.4f} ms; device ms {row['kernel_device_ms']}; plain device ms and "
+            f"launches a call {row['plain_device_ms_and_launches']}; bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}); then {row['clocks_after']}")
+        rows[route] = row
+    return rows
 
 
 def plain_att_rep(model, params):
@@ -3023,7 +3139,12 @@ def main():
     )
 
     # 6. times, after the counted run: the model now serves the grown set
+    reset_launch_counts()  # the serving path's counts were read above
     eval_ms = host_ms(lambda: ev_grown.evaluate(model, params, "test"), 3)
+    sums_per_pass = device_metrics.batch_metric_sums_cuda.launches / 3
+    log(f"metric-sums kernel launches an evaluate on the grown set: {sums_per_pass:g} (two a batch)")
+    if sums_per_pass == 0 or sums_per_pass % 2:
+        raise AssertionError(f"evaluate: {sums_per_pass} metric-sums launches a pass")
     log(
         f"times on {card}: get_rep {get_rep_ms:.3f} ms (median of 20 single calls; {get_rep_windowed_ms:.3f} ms "
         f"in windows of 10 calls), {ds.n_users} users x {ds.n_items} items; "
@@ -3041,6 +3162,8 @@ def main():
         )
         for name, ms, n in kernels:
             log(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
+
+    metric_rows = metric_sums_phase(card, rng)
 
     # 7. train, on a fresh model of the Gowalla-scale set: the kernel's
     # training uses at its layouts, then IGCNTrainer
@@ -3300,8 +3423,18 @@ def main():
     for e in att_entries:  # the same kernels on the shard path: phase 13's edge runs
         e["launches_edge_shard"] = sum(fruns.get(k.replace("/attention", "/edge_shard_attention"), 0)
                                        for k in e["route_keys"])
+    metric_entry = {
+        "name": "metric_sums",
+        "route": "cuda",
+        "source": "inductive_recommendation_tpu_torch/ops/csrc/metric_sums.cu",
+        "replaces": "none (inductive_recommendation_tpu/eval/device_metrics.py::batch_metric_sums, XLA ops)",
+        "launches_per_evaluate": sums_per_pass,
+        "per": f"one batch of {TEST_BATCH} users, top 100, {len(METRIC_TOPKS)} cutoffs; *_ms: median of single "
+        "calls, *_ms_windowed: median of windows of 10 back-to-back calls",
+        "detail": list(metric_rows.values()),
+    }
     print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *att_entries,
-                                  *shard_entries, *family_entries]}))
+                                  *shard_entries, *family_entries, metric_entry]}))
     print(
         json.dumps(
             {

@@ -14,12 +14,23 @@ semantics are those of ``eval/metrics.py::calculate_metrics``:
 Membership is a broadcast compare against the ground-truth rows padded with
 the sentinel ``n_items`` (never a recommended id). For wide rows
 (``sorted_gt=True``, rows sorted ascending) it is a binary search instead.
+
+CUDA tensors run the hand-written kernel of ``ops/csrc/metric_sums.cu`` (two
+launches a batch, no host copy, no synchronisation; ``batch_metric_sums_cuda``
+counts its launches in ``batch_metric_sums_cuda.launches``); CPU tensors run
+the plain PyTorch version, ``batch_metric_sums_reference``.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from inductive_recommendation_tpu_torch.ops import _build
+
+MAX_CUTOFFS = 64  # kMaxCutoffs in ops/csrc/metric_sums.cu
 
 
 def _hits_bsearch(rec, gt_sorted):
@@ -31,8 +42,8 @@ def _hits_bsearch(rec, gt_sorted):
     return (lo < m) & (found == rec)
 
 
-def batch_metric_sums(rec, gt_rows, gt_len, valid, topks, sorted_gt=False):
-    """Per-batch metric partial sums, on the batch's device.
+def batch_metric_sums_reference(rec, gt_rows, gt_len, valid, topks, sorted_gt=False):
+    """Plain PyTorch version of :func:`batch_metric_sums`.
 
     rec:     [B, K] recommended item ids in rank order
     gt_rows: [B, m] ground-truth ids padded with the sentinel n_items
@@ -79,6 +90,68 @@ def batch_metric_sums(rec, gt_rows, gt_len, valid, topks, sorted_gt=False):
             )
         )
     return torch.stack(rows), torch.sum(mask_f)
+
+
+def batch_metric_sums_cuda(rec, gt_rows, gt_len, valid, topks, sorted_gt=False):
+    """Launch ``csrc/metric_sums.cu`` on the current stream: the per-user
+    values at every cutoff, then their sums in a fixed order (so a second
+    launch is bitwise the first). ``rec`` int64 (``torch.topk``'s ids),
+    ``gt_rows`` and ``gt_len`` int32, ``valid`` bool, on one CUDA device; at most
+    ``MAX_CUTOFFS`` cutoffs, each >= 1. Counts two launches a call in
+    ``batch_metric_sums_cuda.launches``."""
+    device = rec.device
+    for name, t in (("rec", rec), ("gt_rows", gt_rows), ("gt_len", gt_len), ("valid", valid)):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}; the kernel needs every operand on {device}")
+    for name, t, dtype in (("rec", rec, torch.int64), ("gt_rows", gt_rows, torch.int32), ("gt_len", gt_len, torch.int32),
+                           ("valid", valid, torch.bool)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    B, K = rec.shape
+    if gt_rows.ndim != 2 or gt_rows.shape[0] != B or gt_len.shape != (B,) or valid.shape != (B,):
+        raise ValueError(f"gt_rows must be [B={B}, m], gt_len and valid [B]; got {tuple(gt_rows.shape)}, "
+                         f"{tuple(gt_len.shape)}, {tuple(valid.shape)}")
+    if not 1 <= len(topks) <= MAX_CUTOFFS or min(topks) < 1:
+        raise ValueError(f"{len(topks)} cutoffs; the kernel takes 1 to {MAX_CUTOFFS}, each >= 1")
+    if K < 1 or max(B, K, gt_rows.shape[1]) >= 2**31:
+        raise ValueError(f"the kernel takes K >= 1 and int32 sizes; got rec {tuple(rec.shape)}, "
+                         f"gt_rows {tuple(gt_rows.shape)}")
+    rec, gt_rows, gt_len, valid = (t.contiguous() for t in (rec, gt_rows, gt_len, valid))
+    # the per-user values [3 n + 1, B] (scratch), then their sums: [n, 3] and n_valid
+    n_out = 3 * len(topks) + 1
+    vals = torch.empty(n_out, B, dtype=torch.float32, device=device)
+    out = torch.empty(n_out, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _build.load("metric_sums").metric_sums(
+            rec.data_ptr(), gt_rows.data_ptr(), gt_len.data_ptr(), valid.data_ptr(), vals.data_ptr(), out.data_ptr(),
+            B, K, gt_rows.shape[1], (ctypes.c_int * len(topks))(*topks), len(topks), int(sorted_gt), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"metric_sums kernel launch failed: cudaError {err}")
+    batch_metric_sums_cuda.launches += 1 + (B > 0)
+    return out[:-1].view(len(topks), 3), out[-1]
+
+
+batch_metric_sums_cuda.launches = 0
+
+
+def batch_metric_sums(rec, gt_rows, gt_len, valid, topks, sorted_gt=False):
+    """Per-batch metric partial sums, on the batch's device: the kernel for
+    CUDA tensors (or it raises), the plain version for CPU tensors.
+
+    rec:     [B, K] recommended item ids in rank order
+    gt_rows: [B, m] ground-truth ids padded with the sentinel n_items
+    gt_len:  [B] ground-truth sizes
+    valid:   [B] bool, False for the padding users of a short last batch
+    returns ([n_topks, 3] fp32 sums of (precision, recall, ndcg), fp32 n_valid)
+    """
+    kinds = {t.device.type for t in (rec, gt_rows, gt_len, valid)}
+    if kinds == {"cuda"}:
+        return batch_metric_sums_cuda(rec, gt_rows, gt_len, valid, topks, sorted_gt)
+    if kinds == {"cpu"}:
+        return batch_metric_sums_reference(rec, gt_rows, gt_len, valid, topks, sorted_gt)
+    raise ValueError(f"the metric sums run on cuda or cpu tensors, all on one, not {sorted(kinds)}")
 
 
 def combine_metric_sums(batch_sums, batch_valids, topks):

@@ -38,6 +38,9 @@ SIGNATURES = {
         ("softmax_stats", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P]),
         ("softmax_apply", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P]),
     ],
+    "metric_sums": [
+        ("metric_sums", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P]),
+    ],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
