@@ -322,11 +322,11 @@ STEP_LAUNCHES = {
     "NGCF": {"forward_dropout": 6, "transpose_dropout": 6},
     "IMCGAE": {"forward": 12},
     "IDCF_LGCN": {"forward": 14},
-    # the query's feat product and the adjacency's 3 + 3; the aggregation and
+    # the adjacency's 3 + 3; the query's feat product; the aggregation and
     # its backward; the attention kernels: the scores, their gradient (chunks
     # and cut rows), d(values), the softmax's statistics (chunks and cut
     # rows) and apply passes, forward and backward
-    "AttIGCN": {"forward": 14, "attention": 2, "attention_transpose": 2,
+    "AttIGCN": {"forward": 12, "attention_query": 2, "attention": 2, "attention_transpose": 2,
                 "sddmm_csr/attention": 1, "sddmm_csr_backward/attention": 2, "sddmm_csr/attention_d_values": 1,
                 "softmax_stats/attention": 2, "softmax_apply/attention": 1, "softmax_stats_backward/attention": 2,
                 "softmax_apply_backward/attention": 1},

@@ -13,13 +13,17 @@ as the spec):
 - the L2 term adds ||Wq||^2 + ||Wk||^2 (model.py:4283-4286).
 
 The query product is the hand-written SpMM on ``feat`` (no dropout: the
-spec's rep layer takes none); the aggregation is the same kernel with the
-attention as its edge values, on ``att_feat``, the feature matrix's values
-layout (``ops/attention_spmm.py``), forward and backward.
+spec's rep layer takes none), its launches counted under the route
+``attention_query``; the aggregation is the same kernel with the attention
+as its edge values, on ``att_feat``, the feature matrix's values layout
+(``ops/attention_spmm.py``), forward and backward. The attention's parts are
+spans: ``irt.attention.query`` and ``.aggregate`` here, ``.fold``,
+``.scores``, ``.softmax`` and the backward ones in ``ops/``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -28,6 +32,7 @@ from inductive_recommendation_tpu_torch.models.base import Linear, linear
 from inductive_recommendation_tpu_torch.models.igcn import IGCN
 from inductive_recommendation_tpu_torch.ops import spmm_csr, spmm_csr_values, values_layout
 from inductive_recommendation_tpu_torch.ops.attention_spmm import fused_kv_attention
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
 class AttIGCN(IGCN):
@@ -61,14 +66,18 @@ class AttIGCN(IGCN):
         emb = params["embedding"][: self.feat_n_cols]
         # the query aggregates the detached table with the alpha-0 weights
         # (row_sum^-1) baked into feat's values
-        q = linear(params, "weight_q", spmm_csr(self.feat, emb.detach())).reshape(-1, h, d)
+        with span("irt.attention.query"):
+            query_feat = dataclasses.replace(self.feat, route="attention_query")
+            q = linear(params, "weight_q", spmm_csr(query_feat, emb.detach())).reshape(-1, h, d)
         return fused_kv_attention(self.att_feat, q, params["weight_k.w"], params["weight_k.b"], emb, self.temperature)
 
     def inductive_rep_layer(self, params, training=False, generator=None):
         """The attention aggregation of the (non-detached) table, the
         attention_spmm_fused_kv of the JAX model."""
         emb = params["embedding"][: self.feat_n_cols]
-        return spmm_csr_values(self.att_feat, emb, self.attention(params))
+        attn = self.attention(params)
+        with span("irt.attention.aggregate"):
+            return spmm_csr_values(self.att_feat, emb, attn)
 
     def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
         users_r, pos_r, neg_r, l2 = super().bpr_forward(

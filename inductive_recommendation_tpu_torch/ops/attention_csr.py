@@ -42,6 +42,7 @@ from torch.utils.weak import WeakTensorKeyDictionary
 from inductive_recommendation_tpu_torch.ops import _build
 from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, route_key, row_of_edges, spmm_csr_reference
 from inductive_recommendation_tpu_torch.ops.spmm import segment_softmax
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 MAX_HEADS = 8  # kMaxHeads in csrc/attention_csr.cu
 SOFTMAX_CHUNK = 256  # kSoftmaxChunk: edges a warp of the softmax passes takes
@@ -473,7 +474,8 @@ def segment_softmax_csr_backward(row_ptr, p, g, temperature: float, route="atten
 class _Scores(torch.autograd.Function):
     """scores [nnz, h] = qk[r_e] . v[c_e] + qb[r_e] (K1) on ``mat``'s edges;
     ``v`` is the detached value table and gets no gradient. Backward:
-    ``sddmm_csr_backward`` on ``mat``, d_qk and d_qb in one kernel."""
+    ``sddmm_csr_backward`` on ``mat``, d_qk and d_qb in one kernel, in the
+    span ``irt.attention.scores_backward``."""
 
     @staticmethod
     def forward(ctx, qk, qb, v, mat):
@@ -484,14 +486,16 @@ class _Scores(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_s):
         mat, (v,) = ctx.mat, ctx.saved_tensors
-        d_qk, d_qb = sddmm_csr_backward(mat.row_ptr, mat.col, g_s, v, route=route_key(mat))
+        with span("irt.attention.scores_backward"):
+            d_qk, d_qb = sddmm_csr_backward(mat.row_ptr, mat.col, g_s, v, route=route_key(mat))
         return d_qk, d_qb, None, None
 
 
 class _SoftmaxMean(torch.autograd.Function):
     """attn [nnz] = the head mean of the per-row softmax of scores / T (the
     statistics and apply passes); backward the two passes in backward mode
-    from the kept per-head softmax."""
+    from the kept per-head softmax, in the span
+    ``irt.attention.softmax_backward``."""
 
     @staticmethod
     def forward(ctx, scores, mat, temperature):
@@ -503,7 +507,8 @@ class _SoftmaxMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
-        g_s = segment_softmax_csr_backward(ctx.mat.row_ptr, p, g, ctx.temperature, route=route_key(ctx.mat))
+        with span("irt.attention.softmax_backward"):
+            g_s = segment_softmax_csr_backward(ctx.mat.row_ptr, p, g, ctx.temperature, route=route_key(ctx.mat))
         return g_s, None, None
 
 

@@ -40,6 +40,7 @@ from inductive_recommendation_tpu_torch.ops.attention_csr import (
 )
 from inductive_recommendation_tpu_torch.ops.csr_spmm import CsrSpMM, spmm_csr_values
 from inductive_recommendation_tpu_torch.ops.spmm import segment_softmax
+from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
 def folded_query(q, w_k, b_k, dv: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,9 +56,14 @@ def fused_kv_attention(mat: CsrSpMM, q, w_k, b_k, v, temperature: float) -> torc
     """fp32 [nnz]: the attention of :func:`attention_spmm_fused_kv` on
     ``mat``'s edges: the folded query's scores (the SDDMM kernel), their row
     softmax and head mean (the statistics and apply passes); on CPU
-    tensors the kernels' plain versions."""
-    qk, qb = folded_query(q, w_k, b_k, v.shape[-1])
-    return softmax_head_mean(mat, attention_scores(mat, qk, qb, v), temperature)
+    tensors the kernels' plain versions. Each part is a span:
+    ``irt.attention.fold``, ``.scores``, ``.softmax``."""
+    with span("irt.attention.fold"):
+        qk, qb = folded_query(q, w_k, b_k, v.shape[-1])
+    with span("irt.attention.scores"):
+        scores = attention_scores(mat, qk, qb, v)
+    with span("irt.attention.softmax"):
+        return softmax_head_mean(mat, scores, temperature)
 
 
 def fused_kv_attention_reference(mat: CsrSpMM, q, w_k, b_k, v, temperature: float) -> torch.Tensor:

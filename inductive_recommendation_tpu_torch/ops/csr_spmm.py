@@ -321,7 +321,7 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
 # the keys of spmm_csr_cuda.route_launches
 ROUTES = (
     "forward", "transpose", "forward_dropout", "transpose_dropout", "view",
-    "attention", "attention_transpose", "aug_feat", "aug_feat_transpose",
+    "attention", "attention_transpose", "attention_query", "aug_feat", "aug_feat_transpose",
     "edge_shard", "edge_shard_transpose", "edge_shard_dropout", "edge_shard_transpose_dropout",
     "edge_shard_view", "edge_shard_view_transpose",
     "edge_shard_aug_feat", "edge_shard_aug_feat_transpose",
@@ -339,7 +339,8 @@ def route_key(mat: CsrSpMM, drop=None) -> str:
     ``transpose_dropout``) for a layout with no ``route``; else the route,
     plus ``_transpose`` on the transpose side, with or without dropout
     (``view``, forward and backward alike since a view is symmetric;
-    ``attention`` / ``attention_transpose``; ``aug_feat`` /
+    ``attention`` / ``attention_transpose``; ``attention_query``, AttIGCN's
+    query product on the feature matrix; ``aug_feat`` /
     ``aug_feat_transpose``; a shard of the multi-GPU layer's edge-sharded
     product, ``edge_shard`` and ``edge_shard_transpose``, each with
     ``_dropout`` under dropout; a shard of a per-epoch view, of DOSE_aug2's
@@ -471,7 +472,8 @@ class _ValuesProduct(torch.autograd.Function):
     kernel on the transpose layout with v gathered into its edge order
     (``t_pos``); grad_v[e] = g[row_e] . x[col_e], the SDDMM kernel with one
     head (``ops.attention_csr.sddmm_csr``, counted under the layout's route
-    plus ``_d_values``; JAX ``attention_spmm.py::_bilinear_bwd``)."""
+    plus ``_d_values``; JAX ``attention_spmm.py::_bilinear_bwd``). The
+    backward is one ``irt.attention.aggregate_backward`` span."""
 
     @staticmethod
     def forward(ctx, x, values, mat):
@@ -486,10 +488,12 @@ class _ValuesProduct(torch.autograd.Function):
         mat, (x, values) = ctx.mat, ctx.saved_tensors
         g = g.contiguous()
         d_x = d_values = None
-        if ctx.needs_input_grad[0]:
-            d_x = _product(dataclasses.replace(mat.T, val=values[mat.t_pos]), g)
-        if ctx.needs_input_grad[1]:
-            d_values = sddmm_csr(mat.row_ptr, mat.col, g[:, None, :], x, route=route_key(mat) + "_d_values")[:, 0]
+        with span("irt.attention.aggregate_backward"):
+            if ctx.needs_input_grad[0]:
+                d_x = _product(dataclasses.replace(mat.T, val=values[mat.t_pos]), g)
+            if ctx.needs_input_grad[1]:
+                d_values = sddmm_csr(mat.row_ptr, mat.col, g[:, None, :], x,
+                                     route=route_key(mat) + "_d_values")[:, 0]
         return d_x, d_values, None
 
 

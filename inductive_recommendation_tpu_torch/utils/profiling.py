@@ -17,7 +17,9 @@ Span names are the layer path, prefixed ``irt.``: ``irt.train.*`` (the
 step's sample, forward, backward and optimizer, the epoch end),
 ``irt.epoch_end.*`` (anneal, selection, view build), ``irt.graph.*``
 (``attach_dataset``'s layouts), ``irt.model.get_rep``, ``irt.ops.spmm``
-(each sparse product) and ``irt.eval.*`` (the evaluator's build, each pass,
+(each sparse product), ``irt.attention.*`` (AttIGCN's query, fold, scores,
+softmax and aggregation, and the backward of the last three) and
+``irt.eval.*`` (the evaluator's build, each pass,
 its refresh, buckets and ground truth, and each batch's score, top-k and
 metric sums).
 """
