@@ -43,7 +43,15 @@ Phases, each of which raises on failure (the exit code is then not 0):
    (``torch.cuda.set_sync_debug_mode("error")``), the wrapper's count two
    launches a call; its time (single, windowed, device) beside the plain
    version's and the byte bound; and its launches in an ``evaluate``;
-7. train: IGCN's training path on a fresh model. (a) On the Gowalla-scale
+7. train: IGCN's training path on a fresh model. First its trainer's two
+   samplers through the BPR draw's kernel (``ops/csrc/bpr_sample.cu``,
+   ``sampler_phase``): each draw bitwise the plain torch ops' on the card
+   from a clone of the same generator state (B 2,048 at neg_ratio 1 and 4,
+   B 1 and 333, three seeds), no synchronisation in a draw, one launch
+   counted a draw, and the draw's time (single, windowed, the host's
+   enqueue) beside the plain version's and the wrapper's device switch
+   alone, with the kernel's device time and its byte bound. (a) On the
+   Gowalla-scale
    layouts, the kernel against its plain version: the transpose product, the
    dropout product (p 0.3) forward and transpose, and the gradient of the
    embedding through the autograd Function against autograd through the
@@ -52,7 +60,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
    same seed gives the same bits. (b) ``get_trainer`` on the grid's IGCN
    config for 2 epochs: the loss falls, val NDCG@20 beats the random-init
    model's, and the reloaded best checkpoint has alpha = 0.99^k and the same
-   metrics. (c) One step is 16 launches (8 products). (d) Step time (single
+   metrics; the run draws 2 batches a step through the sampler's kernel
+   (``STEP_DRAWS``). (c) One step is 16 launches (8 products) and those 2
+   draws. (d) Step time (single
    steps and windows of 10), examples/s, epoch seconds, and one step under
    ``torch.profiler``;
 8. DOSE: the grid's DOSE_aug (d 64, 3 layers, dropout 0.3, aug_num 500,000)
@@ -91,7 +101,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    ItemKNN (k 1,000: build, ``evaluate``) and Popularity (``evaluate``).
    Each: the loss finite and falling within the epoch, metrics equal to the
    host oracle's, SpMM launches a step by route (NGCF 12, IMCGAE 12, IDCF 14,
-   the others 0), step ms (single and windowed), examples/s, one profiled
+   the others 0), draws through the sampler's kernel a step in the run and
+   in one step (``STEP_DRAWS``: MultiVAE 0, the others 1), step ms (single and windowed), examples/s, one profiled
    step, epoch s, ``evaluate`` ms and users/s;
 10. the last four models on the same set, one epoch each, with the checks,
    counts and times of phase 9 (b) (``STEP_LAUNCHES``). (a) AttIGCN at
@@ -244,7 +255,14 @@ from inductive_recommendation_tpu_torch import get_model, get_trainer
 from inductive_recommendation_tpu_torch import main as cli
 from inductive_recommendation_tpu_torch import native
 from inductive_recommendation_tpu_torch.configs import get_gowalla_config
-from inductive_recommendation_tpu_torch.data import BasicDataset, get_dataset, quick_synthetic_dataset
+from inductive_recommendation_tpu_torch.data import (
+    AuxiliaryDataset,
+    BasicDataset,
+    build_sampler_state,
+    get_dataset,
+    quick_synthetic_dataset,
+    sampling,
+)
 from inductive_recommendation_tpu_torch.eval import Evaluator, calculate_metrics
 from inductive_recommendation_tpu_torch.eval import device_metrics
 from inductive_recommendation_tpu_torch.graph import build_feat_matrix, sym_normalized_adjacency
@@ -336,6 +354,14 @@ STEP_LAUNCHES = {
     "DOSE_aug2": {"forward": 12, "forward_dropout": 2, "transpose_dropout": 2, "view": 12, "aug_feat": 2,
                   "aug_feat_transpose": 2},
 }
+# BPR draws through the sampler's kernel a training step
+# (``sample_bpr_batch_cuda.launches``): the IGCN family draws the main batch
+# and the auxiliary one, MultiVAE's MLTrainer takes its batches from the host
+STEP_DRAWS = {
+    "IGCN": 2, "DOSE_aug": 2, "DOSE_aug2": 2, "AttIGCN": 2,
+    "MF": 1, "NGCF": 1, "IMCGAE": 1, "IDCF_LGCN": 1, "NeuMF": 1, "SGL": 1, "HALF": 1,
+    "MultiVAE": 0,
+}
 # phase 11: a raw Gowalla file at the published SNAP loc-Gowalla totals,
 # preprocessed and run by the command line (the grid's IGCN row, index 2, its
 # relative dataset path, the CLI's default seed), with the native routines
@@ -406,11 +432,12 @@ def log(*args):
 
 
 def reset_launch_counts():
-    """Every kernel's launch counts to 0: the SpMM's, the attention kernels'
-    and the metric sums'."""
+    """Every kernel's launch counts to 0: the SpMM's, the attention kernels',
+    the metric sums' and the BPR draw's."""
     reset_spmm_counts()
     attention_csr.reset_launch_counts()
     device_metrics.batch_metric_sums_cuda.launches = 0
+    sampling.sample_bpr_batch_cuda.launches = 0
 
 
 def launches_by_route() -> dict:
@@ -976,10 +1003,15 @@ def train_and_check(trainer, card, n_products) -> dict:
     reset_launch_counts()  # the training path starts here
     trainer.train(verbose=True)
     launches, route_launches = spmm_csr_cuda.launches, dict(spmm_csr_cuda.route_launches)  # and ends here
+    draws = sampling.sample_bpr_batch_cuda.launches
     trainer.train_one_epoch, trainer.eval = train_one_epoch, evaluate
     routes = ("forward", "forward_dropout", "transpose_dropout") + (("view",) if dose else ())
     if min(route_launches[r] for r in routes) == 0:
         raise AssertionError(f"a route of the kernel was not launched in training: {route_launches}")
+    step_draws = STEP_DRAWS[model.name]
+    if draws != step_draws * trainer.steps_per_epoch * len(losses):
+        raise AssertionError(f"training drew {draws} batches through the sampler's kernel in {len(losses)} epochs of "
+                             f"{trainer.steps_per_epoch} steps, expected {step_draws} a step")
 
     ndcg = [m["NDCG"][20] for m in val_metrics]
     if not losses[1] < losses[0]:
@@ -1014,7 +1046,7 @@ def train_and_check(trainer, card, n_products) -> dict:
     log(
         f"train: epoch losses {losses}; val NDCG@20 {init_metrics['NDCG'][20]:.6f} at init, {ndcg} by epoch, "
         f"{final['NDCG'][20]:.6f} after reloading epoch {best} (alpha {model.alpha}); epoch s {epoch_s}; "
-        f"{trainer.steps_per_epoch} steps an epoch; launches {launches} {route_launches}"
+        f"{trainer.steps_per_epoch} steps an epoch; launches {launches} {route_launches}; sampler kernel {draws}"
     )
     os.remove(trainer.save_path)
 
@@ -1025,7 +1057,11 @@ def train_and_check(trainer, card, n_products) -> dict:
     per_step = dict(spmm_csr_cuda.route_launches)
     if spmm_csr_cuda.launches != 2 * n_products or per_step["transpose"] != 0:
         raise AssertionError(f"one step launched {spmm_csr_cuda.launches} ({per_step}), expected {2 * n_products}")
-    log(f"one step: {spmm_csr_cuda.launches} launches for {n_products} products: {per_step}")
+    if sampling.sample_bpr_batch_cuda.launches != step_draws:
+        raise AssertionError(f"one step drew {sampling.sample_bpr_batch_cuda.launches} batches through the sampler's "
+                             f"kernel, expected {step_draws}")
+    log(f"one step: {spmm_csr_cuda.launches} launches for {n_products} products: {per_step}; "
+        f"{step_draws} through the sampler's kernel")
 
     # (d) times
     step_ms = median_ms(trainer.step, reps=30)
@@ -1234,9 +1270,14 @@ def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None, keep
     by_epoch, epoch_s = train_recorded(trainer, run)
     metrics, eval_ms = evaluate_and_check(ds, ev, model, trainer.params, name)
     run_launches = launches_by_route()  # and ends here
-    expected = STEP_LAUNCHES[name]
+    run_draws = sampling.sample_bpr_batch_cuda.launches
+    expected, step_draws = STEP_LAUNCHES[name], STEP_DRAWS[name]
     if expected and min(run_launches[r] for r in expected) == 0:
         raise AssertionError(f"{name}: a route of the kernel was not launched in its run: {run_launches}")
+    n_steps = sum(len(ls) for ls in by_epoch)
+    if run_draws != step_draws * n_steps:
+        raise AssertionError(f"{name}: its run drew {run_draws} batches through the sampler's kernel in {n_steps} "
+                             f"steps, expected {step_draws} a step")
     # a trainer that takes its batches as arguments (MLTrainer) gets one
     # batch of its epoch, built once outside the timed steps
     batch = trainer.batches(trainer.epoch)[0][:2] if hasattr(trainer, "batches") else ()
@@ -1250,6 +1291,9 @@ def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None, keep
     per_step = {k: v for k, v in launches_by_route().items() if v}
     if per_step != expected:
         raise AssertionError(f"{name}: one step launched {per_step}, expected {expected}")
+    if sampling.sample_bpr_batch_cuda.launches != step_draws:
+        raise AssertionError(f"{name}: one step drew {sampling.sample_bpr_batch_cuda.launches} batches through the "
+                             f"sampler's kernel, expected {step_draws}")
     step_ms = median_ms(step, reps=30)
     (step_windowed_ms,) = windowed_ms(step)
     out = {
@@ -1552,6 +1596,109 @@ def metric_sums_phase(card, rng) -> dict:
             f"launches a call {row['plain_device_ms_and_launches']}; bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}); then {row['clocks_after']}")
         rows[route] = row
+    return rows
+
+
+SAMPLER_SEEDS = (3_000_000_019, 2**31 + 11, 7)
+SAMPLER_KERNEL_NAMES = ("bpr_sample_kernel",)
+
+
+def twin_generators(seed) -> tuple:
+    """Two CUDA generators in the same state."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    twin = torch.Generator(device="cuda")
+    twin.set_state(gen.get_state())
+    return gen, twin
+
+
+def sampler_phase(card, samplers=None) -> dict:
+    """The BPR draw's kernel (``ops/csrc/bpr_sample.cu``) on the card, on
+    IGCN's two samplers at the Gowalla size (built here when not given):
+    each draw bitwise the plain torch ops' on the card from a clone of the
+    same generator state, the generators left alike (the step's shape and
+    neg_ratio 4, B 1 and 333, three seeds); no synchronisation in a draw
+    (``torch.cuda.set_sync_debug_mode("error")``), one launch counted a draw;
+    at the step's shape the draw's time (single, windowed, host clock of the
+    enqueue) beside the plain version's and the host time of the wrapper's
+    ``torch.cuda.device`` context alone, the device time and launches of a
+    draw, the kernel's device time and its byte bound. Returns the rows by
+    sampler."""
+    if samplers is None:  # as IGCNTrainer builds them: over the train set and over the core ids
+        ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=SEED)
+        model = get_model(IGCN_CONFIG, ds)
+        aux = AuxiliaryDataset(ds, model.user_map, model.item_map)
+        samplers = {"main": build_sampler_state(ds.train_data, ds.n_items, "cuda"),
+                    "aux": build_sampler_state(aux.train_data, aux.n_items, "cuda")}
+    batch = TRAINER_CONFIG["batch_size"]
+    rows = {}
+    for name, state in samplers.items():
+        for B, neg_ratio in ((batch, 1), (batch, 4), (1, 1), (333, 3)):
+            for seed in SAMPLER_SEEDS:
+                gen, twin = twin_generators(seed)
+                got = sampling.sample_bpr_batch(state, gen, B, neg_ratio)
+                want = sampling.sample_bpr_batch_reference(state, twin, B, neg_ratio)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"sampler {name}, B {B}, neg_ratio {neg_ratio}, seed {seed}: the kernel's "
+                                         "batch is not the plain version's")
+                if not torch.equal(gen.get_state(), twin.get_state()):
+                    raise AssertionError(f"sampler {name}: the two routes left the generator in other states")
+        gen, plain_gen = twin_generators(SAMPLER_SEEDS[0])
+        sampling.sample_bpr_batch(state, gen, batch)
+        torch.cuda.synchronize()
+        sampling.sample_bpr_batch_cuda.launches = 0
+        torch.cuda.set_sync_debug_mode("error")  # any synchronising call raises
+        try:
+            for _ in range(3):
+                sampling.sample_bpr_batch(state, gen, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        per_draw = sampling.sample_bpr_batch_cuda.launches / 3
+        if per_draw != 1:
+            raise AssertionError(f"sampler {name}: {per_draw} kernel launches counted a draw, not 1")
+
+        def kernel():
+            return sampling.sample_bpr_batch_cuda(state, gen, batch)
+
+        def plain():
+            return sampling.sample_bpr_batch_reference(state, plain_gen, batch)
+
+        def device_switch():  # the context the wrapper skips when the state is on the current card
+            with torch.cuda.device(state.deg.device):
+                pass
+
+        row = {"sampler": name, "B": batch, "neg_ratio": 1, "n_valid_users": int(state.valid_users.shape[0]),
+               "n_items": state.n_items, "max_degree": state.max_degree, "launches_per_draw_counted": per_draw}
+        for key, fn in (("host_us", kernel), ("plain_host_us", plain), ("device_switch_host_us", device_switch)):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(400):
+                fn()
+            row[key] = (time.perf_counter() - t0) / 400 * 1e6  # the enqueue alone: the device keeps up
+            torch.cuda.synchronize()
+        row["ms"], row["plain_ms"] = median_ms(kernel), median_ms(plain)
+        row["ms_windowed"], row["plain_ms_windowed"] = windowed_ms(kernel, plain)
+        row["kernel_device_ms"] = kernel_device_ms(kernel, kernels=SAMPLER_KERNEL_NAMES)
+        row["draw_device_ms_and_launches"] = device_ms_per_call(kernel)
+        row["plain_device_ms_and_launches"] = device_ms_per_call(plain)
+        # bytes: the draws read and the batch written once; a pair's user, offset, degree and positive; each
+        # negative's search, ceil(log2(deg + 1)) of the user's items
+        users, _, _ = kernel()
+        deg = state.deg[users].double()
+        n_bytes = 8 * (2 * (2 * batch + batch) + 4 * batch) + 8 * float(torch.ceil(torch.log2(deg + 1)).sum())
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 0.0)
+        row["clocks_after"] = card_clocks()
+        log(f"sampler {name} (B {batch}, {row['n_valid_users']} users with a train item, max degree "
+            f"{state.max_degree}) on {card}: {len(SAMPLER_SEEDS) * 4} draws bitwise the plain version's, no "
+            f"synchronisation, one launch counted a draw; host enqueue: kernel {row['host_us']:.1f} us, plain "
+            f"{row['plain_host_us']:.1f} us a draw, of the kernel's the device switch {row['device_switch_host_us']:.2f} "
+            f"us; single: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms; windows of 10: kernel {row['ms_windowed']:.4f} ms, plain {row['plain_ms_windowed']:.4f} ms; "
+            f"kernel device ms {row['kernel_device_ms']}; a draw's device ms and launches: kernel route "
+            f"{row['draw_device_ms_and_launches']}, plain {row['plain_device_ms_and_launches']}; bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}); then {row['clocks_after']}")
+        rows[name] = row
     return rows
 
 
@@ -3168,6 +3315,7 @@ def main():
     # 7. train, on a fresh model of the Gowalla-scale set: the kernel's
     # training uses at its layouts, then IGCNTrainer
     trainer = get_trainer(TRAINER_CONFIG, ds, get_model(IGCN_CONFIG, ds))
+    sampler_rows = sampler_phase(card, {"main": trainer.sampler, "aux": trainer.aux_sampler})
     train_rows = check_training_kernels(
         trainer.model, trainer.params["embedding"][: trainer.model.feat_n_cols].detach(), rng
     )
@@ -3433,8 +3581,17 @@ def main():
         "calls, *_ms_windowed: median of windows of 10 back-to-back calls",
         "detail": list(metric_rows.values()),
     }
+    sampler_entry = {
+        "name": "bpr_sample",
+        "route": "cuda",
+        "source": "inductive_recommendation_tpu_torch/ops/csrc/bpr_sample.cu",
+        "replaces": "none (inductive_recommendation_tpu/data/sampling.py::sample_bpr_batch, XLA ops)",
+        "per": f"one draw of {TRAINER_CONFIG['batch_size']} pairs; *_ms: median of single calls, *_ms_windowed: "
+        "median of windows of 10 back-to-back calls, host_us: the host's enqueue of a draw",
+        "detail": list(sampler_rows.values()),
+    }
     print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *att_entries,
-                                  *shard_entries, *family_entries, metric_entry]}))
+                                  *shard_entries, *family_entries, metric_entry, sampler_entry]}))
     print(
         json.dumps(
             {

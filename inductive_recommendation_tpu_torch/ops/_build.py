@@ -26,7 +26,7 @@ NVCC_FLAGS = [
 ]
 
 # the C entry points of each source: name -> [(function, argtypes)]
-_P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
+_P, _I, _I64, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64, ctypes.c_float
 SIGNATURES = {
     "spmm_csr": [
         ("spmm_csr_chunks", [_P, _P, _P, _P, _U64, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -40,6 +40,9 @@ SIGNATURES = {
     ],
     "metric_sums": [
         ("metric_sums", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P]),
+    ],
+    "bpr_sample": [
+        ("bpr_sample", [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I, _I, _P]),
     ],
 }
 
