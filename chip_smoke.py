@@ -175,8 +175,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    also under dropout 0.3, where the shards' kept edges together are
    exactly ``edge_uniform``'s on the whole matrix; each shard product's
    time, byte bound and ``torch.sparse.mm`` on the same shard. (c)
-   ``EdgeShardedTrainer`` trains IGCN (the grid width, batch 2,048) for one
-   epoch at mesh (1, world): its first 20 losses equal a single-device
+   ``IGCNTrainer`` in edge mode trains IGCN (the grid width, batch 2,048)
+   for one epoch at mesh (1, world): its first 20 losses equal a single-device
    ``IGCNTrainer`` of the same seed within 1e-5 (same batches, same dropout
    masks), val NDCG@20 beats the random-init model's, its launches are all
    on the ``edge_shard`` routes and one step is 16 launches and 4
@@ -297,7 +297,7 @@ from inductive_recommendation_tpu_torch.parallel import (
 )
 from inductive_recommendation_tpu_torch.parallel.attention import shard_apply, shard_scores, shard_stats
 from inductive_recommendation_tpu_torch.parallel.collectives import counts as collective_counts
-from inductive_recommendation_tpu_torch.parallel.spmm import build_edge_sharded_on_device, place_rows, values_shard
+from inductive_recommendation_tpu_torch.parallel.spmm import place_rows, shard_csr, values_shard
 from inductive_recommendation_tpu_torch.train import bpr_loss, save_checkpoint
 from inductive_recommendation_tpu_torch.train.import_reference import import_reference_checkpoint
 from inductive_recommendation_tpu_torch.utils import trace
@@ -2760,7 +2760,7 @@ def mesh_phase(ds, card, rng, work) -> dict:
     out.update(shard_times={"adjacency": adj_times, "feature_matrix": feat_times}, shard_max_abs_err=max(err_a, err_f))
     del adj_shards, feat_shards
 
-    # (c) EdgeShardedTrainer: IGCN at mesh (1, world), one epoch, against the
+    # (c) IGCNTrainer in edge mode: IGCN at mesh (1, world), one epoch, against the
     # single-device trainer of the same seed
     config = dict(TRAINER_CONFIG, n_epochs=1)
     single = get_trainer(config, ds, get_model(IGCN_CONFIG, ds))
@@ -2923,12 +2923,10 @@ def family_steps(trainer, n=FAMILY_STEPS, grads=None) -> np.ndarray:
 
 
 def model_grads(trainer) -> dict:
-    """The last step's gradients in the model's own layout (IMCGAE's edge
-    trainer holds its shared rows apart, as ``special``)."""
+    """The last step's gradients in the model's own layout (in edge mode
+    IMCGAE holds its shared rows apart, as ``special``)."""
     g = {k: trainer._to_model_layout(k, p.grad).clone() for k, p in trainer.params.items()}
-    if "special" in g:
-        g["embedding"] = torch.cat([g["embedding"], g.pop("special")])
-    return g
+    return g if trainer.placement is None else trainer.model.from_edge_params(g)
 
 
 def same_grads(what, got, want) -> float:
@@ -2965,7 +2963,7 @@ def att_edge_losses(edge, model, got, want) -> bool:
     same kernels on the same edges in the same order, the all-reduces
     identities), else within ATT_EDGE_LOSS_TOL * max(1, |loss|). -> whether
     the shard's CSR is the whole layout."""
-    emat, whole = edge.feat_emat, model.att_feat
+    emat, whole = edge.placement.shard(model.att_feat), model.att_feat
     same = (emat.row_lo == 0 and emat.fwd.n_rows == whole.n_rows and torch.equal(emat.fwd.row_ptr, whole.row_ptr)
             and torch.equal(emat.fwd.col, whole.col))
     diff = np.abs(got - want)
@@ -2991,11 +2989,9 @@ def counted_run(fn) -> tuple:
 
 def split_on_card(name, whole, route, x, g, drop=None):
     """A SHARDS-way split of ``whole`` (a layout built on the device) cut on
-    the device (``build_edge_sharded_on_device``), held against the whole
+    the device (``shard_csr``, as edge mode cuts them), held against the whole
     product (:func:`check_split`). -> (shards, x padded, g padded, times, err)."""
-    rows, cols, vals, eid = whole.edge_rows().long(), whole.col.long(), whole.val, whole.eid.long()
-    shards = [build_edge_sharded_on_device(rows, cols, vals, eid, whole.shape, SHARDS, s, route=route)
-              for s in range(SHARDS)]
+    shards = [shard_csr(whole, SHARDS, s, route=route) for s in range(SHARDS)]
     return check_split(name, whole, shards, x, g, drop)
 
 
@@ -3018,9 +3014,7 @@ def attention_split(model, params, rng) -> tuple:
         q = (spmm_csr_cuda(feat, emb) @ params["weight_q.w"] + params["weight_q.b"]).reshape(-1, h, d)
         qk = torch.einsum("nhd,vhd->nhv", q, params["weight_k.w"].reshape(d, h, d))
         qb = torch.einsum("nhd,hd->nh", q, params["weight_k.b"].reshape(h, d))
-    rows, cols = feat.edge_rows().long(), feat.col.long()
-    shards = [values_shard(build_edge_sharded_on_device(rows, cols, feat.val, feat.eid.long(), feat.shape, SHARDS, s))
-              for s in range(SHARDS)]
+    shards = [values_shard(shard_csr(feat, SHARDS, s)) for s in range(SHARDS)]
     blk, n_pad = shards[0].block, shards[0].n_rows_pad
     v_pad = emb.new_zeros(shards[0].n_cols_pad, d)
     v_pad[: model.feat_n_cols] = emb
@@ -3108,24 +3102,26 @@ def families_phase(ds, card, rng, mesh) -> tuple:
                                          f"{oracle[metric][k]}")
         res["test_ndcg20"] = metrics["NDCG"][20]
         if name in EPOCH_END_FAMILIES:
-            before = [v.fwd.nnz for v in edge.view_shards]
+            keys = model.view_keys
+            before = [edge.placement.shard(model.views[k]).fwd.nnz for k in keys]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             edge.epoch_end()
             torch.cuda.synchronize()
             res["epoch_end_s"] = time.perf_counter() - t0
-            res["reshard_ms"] = host_ms(edge._refresh_views, 3)
-            keys = edge._views_spec[1]
-            for k, v in zip(keys, edge.view_shards):
+            res["reshard_ms"] = host_ms(lambda: [edge.placement.cut(model.views[k]) for k in keys], 3)
+            for k in keys:
+                v = edge.placement.shard(model.views[k])
                 if v.fwd.nnz != model.views[k].nnz or not torch.equal(torch.sort(v.fwd.eid).values,
                                                                        torch.sort(model.views[k].eid).values):
                     raise AssertionError(f"{name}: the shard of view {k} does not hold the view's edges")
-            if name == "DOSE_aug2" and edge.aug_shard is None:
-                raise AssertionError("DOSE_aug2: no augmented feature shard after the epoch end")
+            if name == "DOSE_aug2" and getattr(model, "aug_feat", None) is None:
+                raise AssertionError("DOSE_aug2: no augmented feature matrix after the epoch end")
             after, routes, kinds = counted_run(lambda: family_steps(edge, 2))
             add(run_routes, routes)
             add(run_kinds, kinds)
-            res.update(views_nnz_before=before, views_nnz_after=[v.fwd.nnz for v in edge.view_shards],
+            res.update(views_nnz_before=before,
+                       views_nnz_after=[edge.placement.shard(model.views[k]).fwd.nnz for k in keys],
                        losses_after_epoch_end=after.tolist(), launches_after_epoch_end=routes)
             if not np.isfinite(after).all():
                 raise AssertionError(f"{name}: a loss after the epoch end is not finite")

@@ -40,8 +40,9 @@ utilities and the command line:
 
 and the multi-GPU layer (``parallel/``: one process a card over NCCL, a
 ('data', 'model') mesh, the edge-sharded SpMM, AttIGCN's sharded attention,
-item-sharded retrieval, data mode for every trainer, ``EdgeShardedTrainer``
-for every model with a graph propagation):
+item-sharded retrieval, data mode for every trainer, and edge mode, the
+named trainer with its model's forward passes over the graph's shards, for
+every model with a graph propagation):
 
     torchrun --standalone --nproc_per_node 4 -m inductive_recommendation_tpu_torch --grid gowalla --index 2 \
         --mesh 1,4 --mesh-mode edge

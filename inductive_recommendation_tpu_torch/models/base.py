@@ -12,23 +12,34 @@ be scored with parameters carried across from JAX (``models/convert.py``);
     scores = model.score(state, users)         # [B, n_items]
     u_r, p_r, n_r, l2 = model.bpr_forward(params, users, pos, neg,
                                           generator=cpu_generator)  # training
+
+The forward passes take their sparse products, batch rows and the like
+from ``model.placement`` (``models/placement.py``): one device unless a
+trainer runs them under another inside ``model.placed(...)`` (edge mode).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+
+from inductive_recommendation_tpu_torch.models.placement import LOCAL
 
 
 class BasicModel(nn.Module):
     """Name/shape bookkeeping and the default dot-product scoring
     (reference model.py:35-53). ``trainable`` is False for the eval-only
     baselines (ItemKNN, Popularity), which ``BasicTrainer.train`` only
-    validates."""
+    validates. ``graph_propagation`` is True for the models whose forward
+    pass propagates over the whole graph, the ones edge mode shards."""
 
     trainable = True
+    graph_propagation = False
+    #: where the forward passes run (``placed`` swaps it for a block)
+    placement = LOCAL
 
     def __init__(self, model_config, dataset, device):
         super().__init__()
@@ -66,8 +77,28 @@ class BasicModel(nn.Module):
 
     @torch.no_grad()
     def make_scoring_state(self, params) -> torch.Tensor:
-        """Computed once per evaluation; default: the full representation."""
-        return self.get_rep(params, training=False)
+        """Computed once per evaluation; default: the full representation,
+        whole on every rank."""
+        return self.placement.gather(self.get_rep(params, training=False), self.n_users + self.n_items)
+
+    @contextlib.contextmanager
+    def placed(self, placement):
+        """The forward passes run under ``placement`` inside the block."""
+        before = self.placement
+        self.placement = placement
+        try:
+            yield self
+        finally:
+            self.placement = before
+
+    def edge_params(self, params) -> dict:
+        """The parameters as edge mode holds them before it shards the
+        tables: as they are, unless a model keeps rows of a table apart."""
+        return params
+
+    def from_edge_params(self, params) -> dict:
+        """The inverse of :meth:`edge_params`, back to the model's layout."""
+        return params
 
     def score(self, state, users) -> torch.Tensor:
         """[B, n_items] dot-product scores against the item reps

@@ -39,9 +39,9 @@ from inductive_recommendation_tpu_torch.graph.views import (
     random_pairs_on_device,
 )
 from inductive_recommendation_tpu_torch.models.igcn import IGCN
-from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mean, spmm_csr
+from inductive_recommendation_tpu_torch.ops import build_csr_spmm
 from inductive_recommendation_tpu_torch.ops.cosine_topk import blockwise_cosine_topk
-from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed, spmm_csr_dropout
+from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed
 from inductive_recommendation_tpu_torch.train.losses import info_nce
 from inductive_recommendation_tpu_torch.utils.profiling import span
 
@@ -208,7 +208,7 @@ class _DOSEBase(IGCN):
         """User rows of the representation propagated over view ``key``; the
         feature-matrix dropout is drawn anew for each view (model.py:488-501)."""
         x0 = self._view_x0(params, training, generator)
-        return propagate_mean(self.views[key], x0, self.n_layers)[users]
+        return self.placement.rows(self.placement.propagate_mean(self.views[key], x0, self.n_layers), users)
 
     # -- forward ---------------------------------------------------------------
     def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None, negatives=None):
@@ -329,8 +329,8 @@ class DOSE_aug2(DOSE_aug):
             return super()._view_x0(params, training, generator)
         emb = params["embedding"][: self.feat_n_cols]
         if training and self.dropout > 0.0:
-            return spmm_csr_dropout(self.aug_feat, emb, dropout_seed(generator), self.dropout)
-        return spmm_csr(self.aug_feat, emb)
+            return self.placement.spmm_dropout(self.aug_feat, emb, dropout_seed(generator), self.dropout)
+        return self.placement.spmm(self.aug_feat, emb)
 
 
 class DOSE_aug3(_DOSEBase):

@@ -27,7 +27,7 @@ from torch import nn
 from inductive_recommendation_tpu_torch.graph import bipartite_edges
 from inductive_recommendation_tpu_torch.models.base import BasicModel, Linear, l2_sq_rows, linear
 from inductive_recommendation_tpu_torch.models.lightgcn import build_norm_adj
-from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mean, spmm_csr
+from inductive_recommendation_tpu_torch.ops import build_csr_spmm
 from inductive_recommendation_tpu_torch.train.checkpoint import load_checkpoint
 
 
@@ -47,6 +47,8 @@ class _GatUnit(nn.Module):
 
 
 class IDCF_LGCN(BasicModel):
+    graph_propagation = True
+
     def __init__(self, model_config, dataset, device):
         super().__init__(model_config, dataset, device)
         self.embedding_size = model_config["embedding_size"]
@@ -75,6 +77,7 @@ class IDCF_LGCN(BasicModel):
         d = self.embedding_size
         self.gat_units = nn.ModuleList(_GatUnit(d, self.device) for _ in range(self.n_headers))
         self.w_out = Linear(d * self.n_headers, d, self.device)
+        self._weight_names = [name for name, _ in self.named_parameters()]
         self.init_params()
 
     @torch.no_grad()
@@ -101,25 +104,34 @@ class IDCF_LGCN(BasicModel):
 
     def representations(self, params, generator=None, samples=None, contrastive=False):
         """(the fused heads [n, d], the per-node contrastive term [n] or None);
-        ``samples`` as :meth:`draw_samples` gives them (drawn when None)."""
-        emb = self.frozen_embedding
+        ``samples`` as :meth:`draw_samples` gives them (drawn when None).
+        The rows are the placement's: every row on one device, a rank's
+        rows in edge mode (the rows past the graph's, its padding, with a
+        contrastive term against a zero row)."""
+        place, emb = self.placement, self.frozen_embedding
         with torch.no_grad():
-            x_q = spmm_csr(self.feat, emb)
+            x_q = place.spmm(self.feat, place.local_rows(emb, self.feat, operand=True))
         if samples is None:
             samples = self.draw_samples(generator)
+        w = place.shared(params, self._weight_names)
+        first = place.first_row(x_q)
+        n_u = min(max(self.n_users - first, 0), x_q.shape[0])  # the users come first
         outputs = []
         for i in range(self.n_headers):
             sampled_users = emb[samples[i, 0]]
             sampled_items = emb[self.n_old_users + samples[i, 1]]
-            user_reps = relation_gat(params, f"gat_units.{i}", x_q[: self.n_users], sampled_users)
-            item_reps = relation_gat(params, f"gat_units.{i}", x_q[self.n_users :], sampled_items)
+            user_reps = relation_gat(w, f"gat_units.{i}", x_q[:n_u], sampled_users)
+            item_reps = relation_gat(w, f"gat_units.{i}", x_q[n_u:], sampled_items)
             outputs.append(torch.cat([user_reps, item_reps], dim=0))
-        reps = linear(params, "w_out", torch.cat(outputs, dim=1))
+        reps = linear(w, "w_out", torch.cat(outputs, dim=1))
         if not contrastive:
             return reps, None
-        u_rep, i_rep = reps[: self.n_users], reps[self.n_users :]
-        user_loss = torch.logsumexp(u_rep @ sampled_users.T, dim=1) - (u_rep * emb[: self.n_users]).sum(1)
-        item_own = emb[self.n_old_users :][: self.n_items]
+        u_rep, i_rep = reps[:n_u], reps[n_u:]
+        user_loss = torch.logsumexp(u_rep @ sampled_users.T, dim=1) - (u_rep * emb[first : first + n_u]).sum(1)
+        first_item = max(first - self.n_users, 0)
+        item_own = emb[self.n_old_users + first_item :][: max(min(self.n_items - first_item, i_rep.shape[0]), 0)]
+        if item_own.shape[0] < i_rep.shape[0]:
+            item_own = torch.nn.functional.pad(item_own, (0, 0, 0, i_rep.shape[0] - item_own.shape[0]))
         item_loss = torch.logsumexp(i_rep @ sampled_items.T, dim=1) - (i_rep * item_own).sum(1)
         return reps, torch.cat([user_loss, item_loss])
 
@@ -127,17 +139,17 @@ class IDCF_LGCN(BasicModel):
         reps, closs = self.representations(
             params, generator if training else None, samples, contrastive=contrastive
         )
-        final = propagate_mean(self.norm_adj, reps, self.n_layers)
+        final = self.placement.propagate_mean(self.norm_adj, reps, self.n_layers)
         return (final, closs) if contrastive else final
 
     def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None, samples=None):
         """-> (users_r, pos_r, neg_r, l2, contrastive), l2 with the squared
         query and key weights of every head (model.py:3966-3972)."""
         rep, closs = self.get_rep(params, training, generator, samples, contrastive=True)
-        contrastive = closs[users] + closs[self.n_users + pos_items] + closs[self.n_users + neg_items]
-        users_r = rep[users]
-        pos_r = rep[self.n_users + pos_items]
-        neg_r = rep[self.n_users + neg_items]
+        rows = self.placement.batch_rows
+        c_u, c_p, c_n = rows(closs, users, pos_items, neg_items, self.n_users)
+        contrastive = c_u + c_p + c_n
+        users_r, pos_r, neg_r = rows(rep, users, pos_items, neg_items, self.n_users)
         l2 = l2_sq_rows(users_r, pos_r, neg_r)
         for i in range(self.n_headers):
             l2 = l2 + (params[f"gat_units.{i}.wq.w"] ** 2).sum() + (params[f"gat_units.{i}.wk.w"] ** 2).sum()

@@ -25,13 +25,8 @@ from torch import nn
 from inductive_recommendation_tpu_torch.graph import build_feat_matrix, graph_rank_nodes
 from inductive_recommendation_tpu_torch.models.base import BasicModel, l2_sq_rows
 from inductive_recommendation_tpu_torch.models.lightgcn import build_norm_adj
-from inductive_recommendation_tpu_torch.ops import (
-    build_csr_spmm,
-    propagate_mean,
-    spmm_csr,
-    with_annealed_values,
-)
-from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed, spmm_csr_dropout
+from inductive_recommendation_tpu_torch.ops import build_csr_spmm, with_annealed_values
+from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed
 from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
@@ -54,6 +49,8 @@ def select_core(dataset, feature_ratio, ranking_metric):
 
 
 class IGCN(BasicModel):
+    graph_propagation = True
+
     def __init__(self, model_config, dataset, device):
         super().__init__(model_config, dataset, device)
         self.embedding_size = model_config["embedding_size"]
@@ -121,21 +118,19 @@ class IGCN(BasicModel):
         drawn from the CPU ``generator``."""
         emb = params["embedding"][: self.feat_n_cols]
         if training and self.dropout > 0.0:
-            return spmm_csr_dropout(self.feat, emb, dropout_seed(generator), self.dropout)
-        return spmm_csr(self.feat, emb)
+            return self.placement.spmm_dropout(self.feat, emb, dropout_seed(generator), self.dropout)
+        return self.placement.spmm(self.feat, emb)
 
     @span("irt.model.get_rep")
     def get_rep(self, params, training=False, generator=None):
         x0 = self.inductive_rep_layer(params, training=training, generator=generator)
-        return propagate_mean(self.norm_adj, x0, self.n_layers)
+        return self.placement.propagate_mean(self.norm_adj, x0, self.n_layers)
 
     def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
         """NGCF.bpr_forward shape (model.py:4202-4203): the propagated reps of
         the batch, L2 on those reps."""
         rep = self.get_rep(params, training=training, generator=generator)
-        users_r = rep[users]
-        pos_r = rep[self.n_users + pos_items]
-        neg_r = rep[self.n_users + neg_items]
+        users_r, pos_r, neg_r = self.placement.batch_rows(rep, users, pos_items, neg_items, self.n_users)
         return users_r, pos_r, neg_r, l2_sq_rows(users_r, pos_r, neg_r)
 
     def checkpoint_aux(self):

@@ -20,11 +20,12 @@ from torch import nn
 
 from inductive_recommendation_tpu_torch.models.base import BasicModel, l2_sq_rows
 from inductive_recommendation_tpu_torch.models.lightgcn import build_norm_adj
-from inductive_recommendation_tpu_torch.ops import spmm_csr
 from inductive_recommendation_tpu_torch.ops.dropout import node_dropout_mask
 
 
 class IMCGAE(BasicModel):
+    graph_propagation = True
+
     def __init__(self, model_config, dataset, device):
         super().__init__(model_config, dataset, device)
         self.embedding_size = model_config["embedding_size"]
@@ -54,15 +55,35 @@ class IMCGAE(BasicModel):
         n, d = self.n_users + self.n_items, self.embedding_size
         is_user = (torch.arange(n, device=emb.device) < self.n_users).to(emb.dtype)
         coeff = torch.stack([is_user, 1.0 - is_user, torch.ones_like(is_user)], dim=1)
-        return torch.cat([emb[:n], coeff, emb.new_zeros(n, self.operand_width - d - 3)], dim=1)
+        coeff = self.placement.local_rows(coeff, self.norm_adj)
+        personal = emb[:n]
+        return torch.cat([personal, coeff, emb.new_zeros(personal.shape[0], self.operand_width - d - 3)], dim=1)
+
+    def shared_rows(self, params):
+        """(general_u, general_i, identical): the table's last three rows,
+        or ``special``'s in the edge layout (:meth:`edge_params`)."""
+        if "special" in params:
+            special = params["special"]
+            return special[1], special[2], special[0]
+        emb, n = params["embedding"], self.n_users + self.n_items
+        return emb[n + 1], emb[n + 2], emb[n]
+
+    def edge_params(self, params):
+        """Edge mode shards the personal rows and keeps the three shared ones
+        apart, whole on every rank, as ``special``."""
+        emb, n = params["embedding"], self.n_users + self.n_items
+        return {"embedding": emb[:n], "special": emb[n : n + 3]}
+
+    def from_edge_params(self, params):
+        return {"embedding": torch.cat([params["embedding"], params["special"]])}
 
     def compact_rep(self, params, training=False, generator=None, padded=False):
         """([n, d + 3] propagated compact rows, (general_u, general_i,
         identical)); with ``padded`` the operand's zero padding columns are
         kept. Layer i drops nodes at rate max(dropout - 0.1 i, 0), an
-        identity at rate 0, its mask drawn on the device from a seed drawn
-        from the CPU ``generator``."""
-        emb = params["embedding"]
+        identity at rate 0, its mask drawn whole on the device from a seed
+        drawn from the CPU ``generator``."""
+        place, emb = self.placement, params["embedding"]
         n = self.n_users + self.n_items
         h = final = self.operand(params)
         for i in range(self.n_layers):
@@ -70,10 +91,11 @@ class IMCGAE(BasicModel):
             # clamped, a deep layer is an identity (JAX imcgae.py:74-81)
             rate = max(self.dropout - 0.1 * i, 0.0)
             if training and rate > 0.0:
-                h = h * node_dropout_mask(generator, n, rate, training, emb.device)[:, None]
-            h = spmm_csr(self.norm_adj, h)
+                mask = node_dropout_mask(generator, n, rate, training, emb.device)
+                h = h * place.local_rows(mask, self.norm_adj)[:, None]
+            h = place.spmm(self.norm_adj, h)
             final = final + h * (1.0 / (i + 2))
-        parts = (emb[n + 1], emb[n + 2], emb[n])
+        parts = self.shared_rows(params)
         return (final if padded else final[:, : self.embedding_size + 3]), parts
 
     @staticmethod
@@ -91,7 +113,6 @@ class IMCGAE(BasicModel):
         """Only the batch's rows are expanded to 3d: the full [n, 3d] matrix
         never forms in a step."""
         compact, parts = self.compact_rep(params, training, generator)
-        users_r = self.expand_rows(compact[users], parts)
-        pos_r = self.expand_rows(compact[self.n_users + pos_items], parts)
-        neg_r = self.expand_rows(compact[self.n_users + neg_items], parts)
+        rows = self.placement.batch_rows(compact, users, pos_items, neg_items, self.n_users)
+        users_r, pos_r, neg_r = (self.expand_rows(r, parts) for r in rows)
         return users_r, pos_r, neg_r, l2_sq_rows(users_r, pos_r, neg_r)

@@ -8,7 +8,7 @@ from torch import nn
 
 from inductive_recommendation_tpu_torch.graph import sym_normalized_adjacency
 from inductive_recommendation_tpu_torch.models.base import BasicModel, l2_sq_rows
-from inductive_recommendation_tpu_torch.ops import build_csr_spmm, propagate_mean
+from inductive_recommendation_tpu_torch.ops import build_csr_spmm
 from inductive_recommendation_tpu_torch.utils.profiling import span
 
 
@@ -22,6 +22,8 @@ def build_norm_adj(dataset, device):
 
 
 class LightGCN(BasicModel):
+    graph_propagation = True
+
     def __init__(self, model_config, dataset, device):
         super().__init__(model_config, dataset, device)
         self.embedding_size = model_config["embedding_size"]
@@ -38,12 +40,12 @@ class LightGCN(BasicModel):
 
     def get_rep(self, params, training=False, generator=None):
         emb = params["embedding"][: self.n_users + self.n_items]
-        return propagate_mean(self.norm_adj, emb, self.n_layers)
+        return self.placement.propagate_mean(self.norm_adj, emb, self.n_layers)
 
     def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
         """The propagated reps of the batch, L2 on the ego embeddings
         (model.py:114-117)."""
         rep = self.get_rep(params, training=training)
-        emb = params["embedding"]
-        l2 = l2_sq_rows(emb[users], emb[self.n_users + pos_items], emb[self.n_users + neg_items])
-        return rep[users], rep[self.n_users + pos_items], rep[self.n_users + neg_items], l2
+        rows = self.placement.batch_rows
+        l2 = l2_sq_rows(*rows(params["embedding"], users, pos_items, neg_items, self.n_users))
+        return (*rows(rep, users, pos_items, neg_items, self.n_users), l2)

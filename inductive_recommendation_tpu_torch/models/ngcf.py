@@ -20,7 +20,7 @@ from torch import nn
 
 from inductive_recommendation_tpu_torch.graph import bipartite_edges, row_l1_normalize_values
 from inductive_recommendation_tpu_torch.models.base import BasicModel, Linear, kaiming_uniform_, l2_sq_rows, linear
-from inductive_recommendation_tpu_torch.ops import build_csr_spmm, spmm_csr, spmm_csr_dropout
+from inductive_recommendation_tpu_torch.ops import build_csr_spmm
 from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_seed
 from inductive_recommendation_tpu_torch.ops.dropout import device_generator, dropout_keep
 
@@ -53,6 +53,8 @@ def l2_normalize_rows(h: torch.Tensor) -> torch.Tensor:
 
 
 class NGCF(BasicModel):
+    graph_propagation = True
+
     def __init__(self, model_config, dataset, device):
         super().__init__(model_config, dataset, device)
         self.dropout = model_config["dropout"]
@@ -66,6 +68,7 @@ class NGCF(BasicModel):
         )
         self.gc_layers = nn.ModuleList(Linear(sizes[i], sizes[i + 1], self.device) for i in range(self.n_layers))
         self.bi_layers = nn.ModuleList(Linear(sizes[i], sizes[i + 1], self.device) for i in range(self.n_layers))
+        self._layer_names = [name for name, _ in self.named_parameters() if name != "embedding"]
         self.init_params()
 
     @torch.no_grad()
@@ -79,28 +82,28 @@ class NGCF(BasicModel):
         """[n_users + n_items, d + sum(layer_sizes)]: the embedding and each
         layer's normalized output, side by side. In training with dropout,
         the edge mask's seed and the message masks' generator are drawn from
-        the CPU ``generator``."""
+        the CPU ``generator``; each layer's message mask is drawn whole."""
+        place = self.placement
         h = params["embedding"]
+        w = place.shared(params, self._layer_names)
         layers = [h]
         drop = training and self.dropout > 0.0
         if drop:
             seed = dropout_seed(generator)
             messages = device_generator(generator, h.device)
         for i in range(self.n_layers):
-            m0 = spmm_csr_dropout(self.norm_adj, h, seed, self.dropout) if drop else spmm_csr(self.norm_adj, h)
+            m0 = place.spmm_dropout(self.norm_adj, h, seed, self.dropout) if drop else place.spmm(self.norm_adj, h)
             m1 = h * m0
             h = nn.functional.leaky_relu(
-                linear(params, f"gc_layers.{i}", m0) + linear(params, f"bi_layers.{i}", m1), negative_slope=0.2
+                linear(w, f"gc_layers.{i}", m0) + linear(w, f"bi_layers.{i}", m1), negative_slope=0.2
             )
             if drop:
-                keep = dropout_keep(h.shape, self.dropout, messages, h.device)
-                h = torch.where(keep, h / (1.0 - self.dropout), 0.0)
+                keep = dropout_keep((self.n_users + self.n_items, h.shape[1]), self.dropout, messages, h.device)
+                h = torch.where(place.local_rows(keep, self.norm_adj), h / (1.0 - self.dropout), 0.0)
             layers.append(l2_normalize_rows(h))
         return torch.cat(layers, dim=1)
 
     def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None):
         rep = self.get_rep(params, training=training, generator=generator)
-        users_r = rep[users]
-        pos_r = rep[self.n_users + pos_items]
-        neg_r = rep[self.n_users + neg_items]
+        users_r, pos_r, neg_r = self.placement.batch_rows(rep, users, pos_items, neg_items, self.n_users)
         return users_r, pos_r, neg_r, l2_sq_rows(users_r, pos_r, neg_r)

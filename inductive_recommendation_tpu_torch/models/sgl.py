@@ -20,7 +20,6 @@ from __future__ import annotations
 from inductive_recommendation_tpu_torch.graph.views import ViewEngine, random_keep_mask_on_device
 from inductive_recommendation_tpu_torch.models.base import l2_sq_rows
 from inductive_recommendation_tpu_torch.models.lightgcn import LightGCN
-from inductive_recommendation_tpu_torch.ops import propagate_mean
 from inductive_recommendation_tpu_torch.train.losses import info_nce
 
 
@@ -88,7 +87,7 @@ class SGL(LightGCN):
     def view_users(self, params, key, users):
         """User rows of the embedding propagated over view ``key``."""
         emb = params["embedding"][: self.n_users + self.n_items]
-        return propagate_mean(self.views[key], emb, self.n_layers)[users]
+        return self.placement.rows(self.placement.propagate_mean(self.views[key], emb, self.n_layers), users)
 
     def bpr_forward(self, params, users, pos_items, neg_items, training=True, generator=None, negatives=None):
         """-> (users_r, pos_r, neg_r, l2, contrastive): the propagated reps of
@@ -96,7 +95,7 @@ class SGL(LightGCN):
         per-user InfoNCE; ``negatives`` maps a batch's view rows to its
         negative keys (default: the rows themselves)."""
         rep = self.get_rep(params, training=training)
-        users_r, pos_r, neg_r = rep[users], rep[self.n_users + pos_items], rep[self.n_users + neg_items]
+        users_r, pos_r, neg_r = self.placement.batch_rows(rep, users, pos_items, neg_items, self.n_users)
         closs = self._contrastive(params, users, users_r, negatives or (lambda v: v))
         return users_r, pos_r, neg_r, l2_sq_rows(users_r, pos_r, neg_r), closs
 

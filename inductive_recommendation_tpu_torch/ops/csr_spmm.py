@@ -326,7 +326,7 @@ ROUTES = (
     "edge_shard_view", "edge_shard_view_transpose",
     "edge_shard_aug_feat", "edge_shard_aug_feat_transpose",
     "edge_shard_aug_feat_dropout", "edge_shard_aug_feat_transpose_dropout",
-    "edge_shard_attention", "edge_shard_attention_transpose",
+    "edge_shard_attention", "edge_shard_attention_transpose", "edge_shard_attention_query",
 )
 
 # routed layouts whose products under dropout count apart
@@ -346,7 +346,8 @@ def route_key(mat: CsrSpMM, drop=None) -> str:
     ``_dropout`` under dropout; a shard of a per-epoch view, of DOSE_aug2's
     augmented feature matrix (with ``_dropout``) or of AttIGCN's attention,
     ``edge_shard_view``, ``edge_shard_aug_feat``, ``edge_shard_attention``,
-    each with its ``_transpose``)."""
+    each with its ``_transpose``; ``edge_shard_attention_query``, a shard of
+    the query's layout)."""
     dropout = "" if drop is None else "_dropout"
     if mat.route is None:
         return ("transpose" if mat.transposed else "forward") + dropout

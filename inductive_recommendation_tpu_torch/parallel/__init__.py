@@ -10,9 +10,10 @@ gloo for CPU tensors), a ('data', 'model') ``DeviceMesh``.
   device and the product with per-edge values;
 - ``attention``: AttIGCN's attention softmax and aggregation, sharded;
 - ``eval``: item-sharded exact retrieval with a k-way merge;
-- ``step``: the data-mode step of every trainer and the edge-mode steps of
-  every family with a graph propagation (imported on its own: it depends
-  on the training package).
+- ``placement``: edge mode's placement of a model's forward pass, the
+  operators a model takes (``models/placement.py``) over this rank's shards;
+- ``step``: the data-mode and edge-mode steps around a trainer's own
+  objective.
 
 The JAX package's ``parallel/comms.py`` audits XLA's compiled collectives;
 here every collective is an explicit call, counted in ``collectives``.

@@ -37,12 +37,12 @@ seed. The JAX package draws i.i.d. per shard instead (a hash of the shard
 index and the local edge id, its spmm.py:349-353): the same keep/rescale
 algebra, other masks. Every rank of a 'model' group passes the same seed.
 
-Per-epoch layouts (a DOSE / SGL view, DOSE_aug2's augmented feature matrix)
-are built on the device each epoch; :func:`shard_csr` cuts this rank's
-column block out of such a whole CSR there, with the same row window and
-the whole layout's edge ids, and builds the block's transpose from the same
-triples (a block of a symmetric view is not symmetric). Their launches
-count under their own routes (``edge_shard_view``, ``edge_shard_aug_feat``).
+Edge mode (``parallel/placement.py``) cuts its shards out of a model's
+whole layouts on the device with :func:`shard_csr`: the same row window,
+the whole layout's edge ids, and the block's transpose cut from the whole
+layout's transpose (a block of a symmetric view is not symmetric). A
+layout's launches count under ``edge_shard`` plus its own route
+(``edge_shard_view``, ``edge_shard_aug_feat``, ``edge_shard_attention``).
 :func:`edge_sharded_spmm_values` is the product with per-edge values given
 as an argument (AttIGCN's attention), differentiable in both, on a shard's
 :func:`values_shard`.
@@ -64,7 +64,6 @@ from inductive_recommendation_tpu_torch.ops.csr_spmm import (
     csr_on_device,
     spmm_csr_values,
     values_layout,
-    with_annealed_values,
 )
 from inductive_recommendation_tpu_torch.parallel.collectives import all_gather, all_reduce, reduce_scatter, scatter_rows
 from inductive_recommendation_tpu_torch.parallel.mesh import axis_size, local_rows, mesh_device
@@ -153,38 +152,32 @@ def build_edge_sharded_spmm(row, col, val, shape, n_shards: int, rank: int, devi
     )
 
 
-def build_edge_sharded_on_device(rows, cols, vals, eid, shape, n_shards: int, rank: int,
-                                 route: str = ROUTE) -> EdgeShardedSpMM:
-    """Rank ``rank``'s shard from COO triples already on a device (int64
-    ``rows`` / ``cols`` / ``eid``, fp32 ``vals``, torch tensors), built there:
-    the column block filtered on the device, the row window read back as two
-    integers, the block's CSR and its transpose built from the same triples
-    (``ops.csr_spmm.csr_on_device``) with the global edge ids ``eid``."""
+def shard_csr(mat: CsrSpMM, n_shards: int, rank: int, route: str = ROUTE) -> EdgeShardedSpMM:
+    """Rank ``rank``'s shard of ``n_shards`` of a whole layout, cut on its
+    device with ``mat``'s edge ids, so that a dropout seed drops the edges
+    the whole layout drops under it: the column block filtered there, the
+    row window read back as two integers. The forward CSR keeps the block's
+    edges in ``mat``'s order, and its transpose is the block's rows of
+    ``mat.T`` (``mat`` itself when symmetric) in their order: a single shard
+    sums as the whole layout does, forward and backward."""
     if not 0 <= rank < n_shards:
         raise ValueError(f"rank {rank} outside {n_shards} shards")
-    n_rows, n_cols = (int(x) for x in shape)
+    n_rows, n_cols = mat.shape
     n_rows_pad, n_cols_pad = _padded(n_rows, n_cols, n_shards)
     blk = n_cols_pad // n_shards
-    if eid.numel() and int(eid.max()) >= 2**31:
-        raise ValueError(f"edge id {int(eid.max())} does not fit the int32 CSR")
+    rows, cols, vals, eid = mat.edge_rows().long(), mat.col.long(), mat.val, mat.eid.long()
     m = (cols >= rank * blk) & (cols < (rank + 1) * blk) & (vals != 0)
     r, c, v, e = rows[m], cols[m] - rank * blk, vals[m], eid[m]
     lo, hi = (0, 0) if r.numel() == 0 else (int(x) for x in torch.stack([r.min(), r.max() + 1]).tolist())
-    transpose = csr_on_device(c, r - lo, v, (blk, hi - lo), eid=e, transposed=True, route=route)
+    t = mat.T
+    a, b = min(rank * blk, t.n_rows), min((rank + 1) * blk, t.n_rows)
+    e_lo, e_hi = (int(x) for x in t.row_ptr[[a, b]].tolist())
+    transpose = csr_on_device(t.edge_rows()[e_lo:e_hi].long() - a, t.col[e_lo:e_hi].long() - lo, t.val[e_lo:e_hi],
+                              (blk, hi - lo), eid=t.eid[e_lo:e_hi].long(), transposed=True, route=route)
     fwd = csr_on_device(r - lo, c, v, (hi - lo, blk), eid=e, transpose=transpose, route=route)
     return EdgeShardedSpMM(
         fwd=fwd, eid_map=e, n_rows=n_rows, n_cols=n_cols, n_rows_pad=n_rows_pad, n_cols_pad=n_cols_pad,
         n_shards=int(n_shards), rank=int(rank), nnz=int((vals != 0).sum()), row_lo=lo, row_hi=hi,
-    )
-
-
-def shard_csr(mat: CsrSpMM, mesh, route: str) -> EdgeShardedSpMM:
-    """This rank's shard of a whole CSR built on the device (a per-epoch
-    view or augmented feature matrix), with ``mat``'s edge ids, so that a
-    dropout seed drops the edges the whole layout drops under it."""
-    return build_edge_sharded_on_device(
-        mat.edge_rows().long(), mat.col.long(), mat.val, mat.eid.long(), mat.shape,
-        axis_size(mesh, "model"), mesh.get_local_rank("model"), route=route,
     )
 
 
@@ -202,22 +195,6 @@ def edge_sharded_spmm_values(emat: EdgeShardedSpMM, x: torch.Tensor, values: tor
     padded row space, then a reduce-scatter."""
     part = spmm_csr_values(emat.fwd, x.contiguous(), values)
     return scatter_rows(F.pad(part, (0, 0, emat.row_lo, emat.n_rows_pad - emat.row_hi)), group)
-
-
-def build_for_mesh(row, col, val, shape, mesh) -> EdgeShardedSpMM:
-    """:func:`build_edge_sharded_spmm` for this rank's coordinate on 'model',
-    on the mesh's device."""
-    return build_edge_sharded_spmm(
-        row, col, val, shape, axis_size(mesh, "model"), mesh.get_local_rank("model"), device=mesh_device(mesh)
-    )
-
-
-def bake_annealed(emat: EdgeShardedSpMM, row_sum: torch.Tensor, alpha: float) -> EdgeShardedSpMM:
-    """The shard with IGCN's annealed feature weights folded into a copy of
-    its values, both sides (``ops.csr_spmm.with_annealed_values``: an edge's
-    feature row is its row in the forward CSR, ``row_lo`` past the shard's
-    first); once an anneal, not once a product (JAX ``bake_stacked_scale``)."""
-    return dataclasses.replace(emat, fwd=with_annealed_values(emat.fwd, row_sum[emat.row_lo : emat.row_hi], alpha))
 
 
 def place_rows(emat: EdgeShardedSpMM, part: torch.Tensor) -> torch.Tensor:

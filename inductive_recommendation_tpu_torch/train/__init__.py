@@ -1,12 +1,12 @@
 """Training: losses, checkpoints (the port's and the JAX package's msgpack),
 meters and the trainers (BasicTrainer, BPRTrainer, IGCNTrainer, IDCFTrainer,
-BCETrainer, MLTrainer, SGLTrainer, HALFTrainer and the DOSE trainers; BPR and
-IGCN also data-parallel on a mesh) and ``EdgeShardedTrainer`` (the graph
-sharded over a mesh). ``train.import_reference`` converts the reference's
-``.pth`` files."""
+BCETrainer, MLTrainer, SGLTrainer, HALFTrainer and the DOSE trainers; each
+also on a mesh, data-parallel or, for a model with a graph propagation, with
+the graph sharded under ``parallel.placement``'s edge placement).
+``train.import_reference``
+converts the reference's ``.pth`` files."""
 
 from inductive_recommendation_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from inductive_recommendation_tpu_torch.train.edge_trainer import EdgeShardedTrainer
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, info_nce, multinomial_ll_loss
 from inductive_recommendation_tpu_torch.train.meters import AverageMeter
 from inductive_recommendation_tpu_torch.train.trainer import (
@@ -36,7 +36,6 @@ __all__ = [
     "DOSEaugTrainer",
     "DOSEdropTrainer",
     "DOSEtestTrainer",
-    "EdgeShardedTrainer",
     "HALFTrainer",
     "IDCFTrainer",
     "IGCNTrainer",

@@ -38,13 +38,28 @@ moments; a contrastive loss gathers the whole batch's view rows as its
 negatives; the draws a model makes over the whole batch, MultiVAE's noise,
 are made whole on every rank; the epoch ends run alike on every rank from
 the same generator state), and evaluation runs the mesh evaluator;
-``mesh_mode="edge"`` shards the graph too (``train/edge_trainer.py``).
-Checkpoints hold the model's own layout, written by rank 0 behind a
-barrier, so a single-device trainer loads them.
+``mesh_mode="edge"`` runs the same trainer with the graph, the embedding
+table and its Adam moments sharded over 'model' and the batch split over
+'data': its model's forward passes run under the edge placement
+(``parallel/placement.py``), its own ``sample``, ``batch_loss`` and
+``epoch_end`` serve, and its step is ``parallel/step.py::make_edge_step``.
+Every rank draws the same batches and dropout seeds as the single-device
+trainer of the same seed, so the losses are that trainer's up to the order
+of fp32 sums (at world 1, bit for bit). Edge mode takes the models that
+declare a graph propagation (``graph_propagation``; the JAX package's
+edge_trainer.py:149-191). Checkpoints hold the model's own layout, written
+by rank 0 behind a barrier, so a single-device trainer loads them (a model
+that keeps rows of its table apart in edge mode, IMCGAE's ``special``,
+keeps its Adam moments in that layout, so its state resumes in edge mode).
+
+A direct ``model.attach_dataset(grown)`` is followed too: before an epoch,
+an evaluation or a recommendation the trainer rebinds its samplers and its
+evaluator to the dataset its model holds, as ``attach_dataset`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -55,10 +70,16 @@ import torch.distributed as dist
 from inductive_recommendation_tpu_torch.data.dataset import AuxiliaryDataset
 from inductive_recommendation_tpu_torch.data.sampling import build_sampler_state, sample_bpr_batch
 from inductive_recommendation_tpu_torch.eval.evaluator import Evaluator
-from inductive_recommendation_tpu_torch.parallel.mesh import gather_rows, local_rows, param_spec, shard_params
-from inductive_recommendation_tpu_torch.parallel.step import gather_negatives, make_data_step, mean_loss_on_slice
+from inductive_recommendation_tpu_torch.parallel.mesh import axis_size, gather_rows, local_rows, param_spec, shard_params
+from inductive_recommendation_tpu_torch.parallel.placement import EdgePlacement
+from inductive_recommendation_tpu_torch.parallel.step import (
+    gather_negatives,
+    make_data_step,
+    make_edge_step,
+    mean_loss_on_slice,
+)
 from inductive_recommendation_tpu_torch.train.checkpoint import JAX_FORMAT, load_checkpoint, save_checkpoint
-from inductive_recommendation_tpu_torch.train.losses import aux_bpr_w, bce_losses, bpr_loss, multinomial_ll_loss
+from inductive_recommendation_tpu_torch.train.losses import aux_bpr_rows, bce_losses, bpr_loss, multinomial_ll_loss
 from inductive_recommendation_tpu_torch.utils.profiling import span
 
 OPTIMIZERS = {"Adam": torch.optim.Adam, "SGD": torch.optim.SGD}
@@ -72,11 +93,11 @@ def _epoch_mean(losses) -> float:
 
 
 class BasicTrainer:
-    # a mesh means data mode: the model whole on every rank, its tables
-    # row-sharded (EdgeShardedTrainer shards the graph instead)
-    _data_mesh = True
+    """``mesh_mode`` (under a mesh): 'data', the model whole on every rank
+    and its tables row-sharded; 'edge', the graph sharded too, the model's
+    forward passes under ``self.placement``."""
 
-    def __init__(self, trainer_config, dataset, model):
+    def __init__(self, trainer_config, dataset, model, mesh_mode="data"):
         self.config = dict(trainer_config)
         self.name = trainer_config["name"]
         self.dataset = dataset
@@ -102,24 +123,48 @@ class BasicTrainer:
         # optional ('data', 'model') DeviceMesh (get_trainer's mesh=); None:
         # one device
         self.mesh = self.config.get("mesh")
+        # edge mode's placement of the model's forward passes; None: the
+        # model's own (one device, or whole on every rank in data mode)
+        self.placement = None
+        if self.mesh is not None and mesh_mode == "edge":
+            if not model.graph_propagation:
+                raise ValueError(
+                    f"{type(model).__name__} has no O(|E|) graph propagation to shard (edge mode takes LightGCN, "
+                    "SGL/HALF, NGCF, IMCGAE, IDCF_LGCN, IGCN/IMF/AttIGCN and every DOSE variant); use mesh_mode='data'"
+                )
+            self.placement = EdgePlacement(self.mesh)
+        # the dataset the model held when last bound: a direct
+        # model.attach_dataset(...) replaces it (_follow_model_dataset)
+        self._model_dataset = model.dataset
         self.evaluator = Evaluator(
             dataset, self.topks, trainer_config.get("test_batch_size", 512), device=self.device, mesh=self.mesh
         )
         self.params = model.init_params(self.generator)
-        # the model's own parameter shapes: checkpoints hold this layout
+        if self.placement is not None:
+            self.params = model.edge_params(self.params)
+        # the parameter shapes before sharding: checkpoints hold this layout
         self._shapes = {name: tuple(p.shape) for name, p in self.params.items()}
         self._mesh_step = None
-        if self.data_parallel:
-            if self.batch_size % self.mesh.size():
-                raise ValueError(f"batch_size {self.batch_size} must divide over the mesh ({self.mesh.size()} ranks)")
+        if self.mesh is not None:
+            # data mode slices the batch over every rank, edge mode over 'data'
+            n, what = (self.mesh.size(), "the mesh") if self.placement is None else (
+                axis_size(self.mesh, "data"), "the mesh's 'data' axis")
+            if self.batch_size % n:
+                raise ValueError(f"batch_size {self.batch_size} must divide over {what} ({n} ranks)")
             self.params = shard_params(self.params, self.mesh)
         self.optimizer = None
         self.steps_per_epoch = max(1, -(-len(dataset) // self.batch_size))
 
-    @property
-    def data_parallel(self) -> bool:
-        """Training data-parallel over a mesh (not edge mode)."""
-        return self.mesh is not None and self._data_mesh
+    def _placed(self):
+        """The block in which the model's forward passes run under this
+        trainer's placement (edge mode)."""
+        return contextlib.nullcontext() if self.placement is None else self.model.placed(self.placement)
+
+    def _scoring_params(self):
+        """The parameters evaluation scores with: this rank's in edge mode
+        (the model's forward gathers its representation), else the model's
+        layout."""
+        return self.params if self.placement is not None else self._model_params()
 
     @property
     def is_writer(self) -> bool:
@@ -142,7 +187,8 @@ class BasicTrainer:
 
     def _model_params(self):
         """The parameters in the model's own layout (gathered under a mesh)."""
-        return {name: self._to_model_layout(name, p) for name, p in self.params.items()}
+        params = {name: self._to_model_layout(name, p) for name, p in self.params.items()}
+        return params if self.placement is None else self.model.from_edge_params(params)
 
     def _map_opt_state(self, state, convert):
         """``optimizer.state_dict()`` with ``convert(name, t)`` applied to the
@@ -173,19 +219,31 @@ class BasicTrainer:
         raise NotImplementedError
 
     def _local_loss(self):
-        """Data mode: this rank's term of the global loss (``make_data_step``)."""
-        return mean_loss_on_slice(lambda full, *b: self.batch_loss(full, *b, negatives=gather_negatives),
-                                  self.batch_size)
+        """Under a mesh: this rank's term of the global loss (the steps of
+        ``parallel/step.py``), in edge mode under the placement."""
+        if self.placement is None:
+            return mean_loss_on_slice(lambda full, *b: self.batch_loss(full, *b, negatives=gather_negatives),
+                                      self.batch_size)
+
+        def placed_loss(params, *b):
+            with self._placed():
+                return self.batch_loss(params, *b, negatives=self.placement.negatives)
+
+        return mean_loss_on_slice(placed_loss, self.batch_size)
 
     def step(self, *batch) -> torch.Tensor:
         """One optimizer step on ``batch`` (a freshly sampled one unless
         given); returns the batch loss as a device scalar. On one device its
         four phases are the spans ``irt.train.sample``, ``forward``,
         ``backward`` and ``optimizer`` inside ``irt.train.step``."""
-        if self.data_parallel:
+        if self.mesh is not None:
             if self._mesh_step is None:
-                self._mesh_step = make_data_step(lambda: self.optimizer, self.params, self.batch_size, self.mesh,
-                                                 self._local_loss(), prepare=self._prepare_batch)
+                if self.placement is None:
+                    self._mesh_step = make_data_step(lambda: self.optimizer, self.params, self.batch_size, self.mesh,
+                                                     self._local_loss(), prepare=self._prepare_batch)
+                else:
+                    self._mesh_step = make_edge_step(lambda: self.optimizer, self.params, self.batch_size, self.mesh,
+                                                     self._local_loss())
             return self._mesh_step(*(batch or self.sample()))
         with span("irt.train.step"):
             with span("irt.train.sample"):
@@ -202,6 +260,7 @@ class BasicTrainer:
     _prepare_batch = None
 
     def train_one_epoch(self) -> float:
+        self._follow_model_dataset()
         losses = [self.step() for _ in range(self.steps_per_epoch)]
         with span("irt.train.epoch_end"):
             loss = _epoch_mean(losses)
@@ -226,6 +285,8 @@ class BasicTrainer:
     # -- checkpoint helpers --------------------------------------------------
     @torch.no_grad()
     def _restore_params(self, saved):
+        if self.placement is not None:
+            saved = self.model.edge_params(saved)
         missing = sorted(set(self.params) - set(saved))
         if missing:
             raise KeyError(f"the checkpoint lacks parameters {missing}; it has {sorted(saved)}")
@@ -365,26 +426,64 @@ class BasicTrainer:
 
     # -- evaluation (delegates; trainer.py:146-210) -------------------------
     def eval(self, val_or_test, banned_items=None):
-        return self.evaluator.evaluate(self.model, self._model_params(), val_or_test, banned_items=banned_items)
+        self._follow_model_dataset()
+        with self._placed():
+            return self.evaluator.evaluate(self.model, self._scoring_params(), val_or_test, banned_items=banned_items)
 
     def inductive_eval(self, n_old_users, n_old_items):
-        return self.evaluator.inductive_eval(
-            self.model, self._model_params(), n_old_users, n_old_items, verbose=self.is_writer
-        )
+        self._follow_model_dataset()
+        with self._placed():
+            return self.evaluator.inductive_eval(
+                self.model, self._scoring_params(), n_old_users, n_old_items, verbose=self.is_writer
+            )
 
     def recommend(self, stage="test", banned_items=None):
         """Top-k_max items for every user -> [n_users, k_max] numpy ('test'
         excludes train+val history, 'val' train, anything else nothing)."""
-        return self.evaluator.recommend(self.model, self._model_params(), stage, banned_items=banned_items)
+        self._follow_model_dataset()
+        with self._placed():
+            return self.evaluator.recommend(self.model, self._scoring_params(), stage, banned_items=banned_items)
+
+    # -- inductive catalog growth (JAX edge_trainer.py:574-612) ----------------
+    def attach_dataset(self, dataset):
+        """Attach the grown dataset (train plus new interactions) to the model
+        and rebuild the samplers and the evaluator around it; the trained
+        weights and the optimizer's state stay (an inductive model's table
+        is core-sized, so growth changes only the graph)."""
+        if not hasattr(self.model, "attach_dataset"):
+            raise ValueError(f"{type(self.model).__name__} has no inductive attach path")
+        self.model.attach_dataset(dataset)
+        self._rebind_dataset(dataset)
+
+    def _follow_model_dataset(self):
+        """Rebind to the model's dataset after a direct
+        ``model.attach_dataset(grown)`` (the single-device habit), which
+        would otherwise leave the samplers and the evaluator on the old one."""
+        if self.model.dataset is not self._model_dataset:
+            self._rebind_dataset(self.model.dataset)
+
+    def _rebind_dataset(self, dataset):
+        self._model_dataset = self.dataset = dataset
+        self.steps_per_epoch = max(1, -(-len(dataset) // self.batch_size))
+        self.evaluator = Evaluator(
+            dataset, self.topks, self.config.get("test_batch_size", 512), device=self.device, mesh=self.mesh
+        )
+        self._build_samplers(dataset)
+
+    def _build_samplers(self, dataset):
+        """The samplers of ``dataset``'s batches: none here."""
 
 
 class BPRTrainer(BasicTrainer):
     """BPR + L2 (trainer.py:403-429); MF, LightGCN, NGCF, IMCGAE."""
 
-    def __init__(self, trainer_config, dataset, model):
-        super().__init__(trainer_config, dataset, model)
+    def __init__(self, trainer_config, dataset, model, **mesh_mode):
+        super().__init__(trainer_config, dataset, model, **mesh_mode)
         self.l2_reg = trainer_config["l2_reg"]
         self.initialize_optimizer()
+        self._build_samplers(dataset)
+
+    def _build_samplers(self, dataset):
         self.sampler = build_sampler_state(dataset.train_data, dataset.n_items, self.device)
 
     def sample(self):
@@ -407,8 +506,8 @@ class ContrastiveBPRTrainer(BPRTrainer):
     package's ``SGLTrainer``, trainer.py:472-511 there); no epoch end
     (``SGLTrainer`` adds one)."""
 
-    def __init__(self, trainer_config, dataset, model):
-        super().__init__(trainer_config, dataset, model)
+    def __init__(self, trainer_config, dataset, model, **mesh_mode):
+        super().__init__(trainer_config, dataset, model, **mesh_mode)
         self.contrastive_reg = trainer_config["contrastive_reg"]
 
     def _objective(self, out):
@@ -448,8 +547,8 @@ class BCETrainer(BasicTrainer):
     is softplus BCE on one positive and ``neg_ratio`` negatives per user
     (the dataset's ``negative_sample_ratio``) plus L2."""
 
-    def __init__(self, trainer_config, dataset, model):
-        super().__init__(trainer_config, dataset, model)
+    def __init__(self, trainer_config, dataset, model, **mesh_mode):
+        super().__init__(trainer_config, dataset, model, **mesh_mode)
         self.l2_reg = trainer_config["l2_reg"]
         self.mf_pretrain_epochs = trainer_config["mf_pretrain_epochs"]
         self.mlp_pretrain_epochs = trainer_config["mlp_pretrain_epochs"]
@@ -507,8 +606,8 @@ class MLTrainer(BasicTrainer):
     whole on every rank (``MultiVAE.draw_noise``) and a slice's terms are
     normalized by the whole batch's real users."""
 
-    def __init__(self, trainer_config, dataset, model):
-        super().__init__(trainer_config, dataset, model)
+    def __init__(self, trainer_config, dataset, model, **mesh_mode):
+        super().__init__(trainer_config, dataset, model, **mesh_mode)
         self.l2_reg = trainer_config["l2_reg"]
         self.kl_reg = trainer_config["kl_reg"]
         self.initialize_optimizer()
@@ -564,8 +663,8 @@ class IGCNTrainer(BasicTrainer):
     reference pairs DOSE_drop2 with this trainer, config.py:146-151) trains
     without it, as in the JAX package."""
 
-    def __init__(self, trainer_config, dataset, model):
-        super().__init__(trainer_config, dataset, model)
+    def __init__(self, trainer_config, dataset, model, **mesh_mode):
+        super().__init__(trainer_config, dataset, model, **mesh_mode)
         self.l2_reg = trainer_config["l2_reg"]
         self.aux_reg = trainer_config["aux_reg"]
         self.initialize_optimizer()
@@ -585,8 +684,12 @@ class IGCNTrainer(BasicTrainer):
 
     def batch_loss(self, params, users, pos, neg, a_users, a_pos, a_neg, negatives=None):
         out = self.model.bpr_forward(params, users, pos, neg, training=True, generator=self.host_generator)
-        aux = aux_bpr_w(params["embedding"], params["w"], a_users, a_pos, a_neg, self.model.user_dim)
-        return self._objective(out, aux)
+        return self._objective(out, self._aux(params, a_users, a_pos, a_neg))
+
+    def _aux(self, params, a_users, a_pos, a_neg):
+        """The auxiliary BPR on the core table's rows of the aux batch."""
+        rows = self.model.placement.batch_rows(params["embedding"], a_users, a_pos, a_neg, self.model.user_dim)
+        return aux_bpr_rows(*rows, params["w"])
 
     def _objective(self, out, aux):
         u_r, p_r, n_r, l2 = out[:4]
@@ -603,15 +706,14 @@ class DOSEaugTrainer(IGCNTrainer):
     (trainer.py:298-299). The InfoNCE takes its negatives from the batch's
     view rows, as ``SGLTrainer``'s."""
 
-    def __init__(self, trainer_config, dataset, model):
-        super().__init__(trainer_config, dataset, model)
+    def __init__(self, trainer_config, dataset, model, **mesh_mode):
+        super().__init__(trainer_config, dataset, model, **mesh_mode)
         self.contrastive_reg = trainer_config["contrastive_reg"]
 
     def batch_loss(self, params, users, pos, neg, a_users, a_pos, a_neg, negatives=None):
         out = self.model.bpr_forward(params, users, pos, neg, training=True, generator=self.host_generator,
                                      negatives=negatives)
-        aux = aux_bpr_w(params["embedding"], params["w"], a_users, a_pos, a_neg, self.model.user_dim)
-        return self._objective(out, aux)
+        return self._objective(out, self._aux(params, a_users, a_pos, a_neg))
 
     def _objective(self, out, aux):
         return super()._objective(out, aux) + self.contrastive_reg * out[4].mean()
@@ -645,16 +747,11 @@ def get_trainer(trainer_config, dataset, model, mesh=None, mesh_mode="data"):
 
     ``mesh``: a ('data', 'model') ``DeviceMesh`` (``parallel.make_mesh``) over
     the ranks of a torchrun launch. ``mesh_mode="data"``: the named trainer
-    trains data-parallel with row-sharded tables.
-    ``mesh_mode="edge"``: ``EdgeShardedTrainer``, the graph, the table and
-    its Adam moments sharded over 'model'; the named trainer's config gives
-    the loss's regularizers."""
-    if mesh is not None and mesh_mode == "edge":
-        from inductive_recommendation_tpu_torch.train.edge_trainer import EdgeShardedTrainer
-
-        return EdgeShardedTrainer(dict(trainer_config, mesh=mesh), dataset, model)
+    trains data-parallel with row-sharded tables. ``mesh_mode="edge"``: the
+    named trainer with the graph, the table and its Adam moments sharded
+    over 'model' (the edge placement)."""
     if mesh_mode not in ("data", "edge"):
         raise ValueError(f"mesh_mode {mesh_mode!r} is not 'data' or 'edge'")
-    if mesh is not None:
-        trainer_config = dict(trainer_config, mesh=mesh)
-    return TRAINERS[trainer_config["name"]](trainer_config, dataset, model)
+    if mesh is None:
+        return TRAINERS[trainer_config["name"]](trainer_config, dataset, model)
+    return TRAINERS[trainer_config["name"]](dict(trainer_config, mesh=mesh), dataset, model, mesh_mode=mesh_mode)

@@ -5,10 +5,12 @@ its gradients in the folded query, Wk, bk and the value table against
 ``tests/test_edge_sharded_attention.py:77-130`` holds JAX's to its single
 device), the shard's attention against the port's single-device
 ``fused_kv_attention``, the collectives of one forward and of its backward, and
-``make_edge_sharded_att_igcn_step`` for 3 Adam steps at S = 1, 2, 4 with
-JAX's batches handed in, and its first step's gradients of every parameter
-(Wq and Wk get theirs through ``collectives.shared``) against JAX's, read
-from an optax transformation that keeps them as its state.
+AttIGCN's ``IGCNTrainer`` in edge mode (its model's forward under the edge
+placement) against JAX's ``make_edge_sharded_att_igcn_step`` for 3 Adam
+steps at S = 1, 2, 4 with JAX's batches handed in and from JAX's init, and
+its first step's gradients of every parameter (Wq and Wk get theirs through
+``collectives.shared``) against JAX's, read from an optax transformation
+that keeps them as its state.
 
 Ranks run over gloo (``parallel.launch.run_ranks``), one launch per world
 size; JAX runs on conftest's 8 virtual devices at (8 / S, S). The loss of
@@ -103,7 +105,6 @@ def attention_ranks(inputs, step_inputs):
     from inductive_recommendation_tpu_torch.parallel.collectives import all_gather, counts, reset_collective_counts, shared
     from inductive_recommendation_tpu_torch.parallel.mesh import gather_rows, local_rows
     from inductive_recommendation_tpu_torch.parallel.spmm import values_shard
-    from inductive_recommendation_tpu_torch.parallel.step import make_edge_sharded_att_igcn_step
 
     S, s = dist.get_world_size(), dist.get_rank()
     mesh = make_mesh(1, S)
@@ -133,25 +134,28 @@ def attention_ranks(inputs, step_inputs):
         out["attn"] = sharded_attention(mat, qk_all, qb_all, v, TEMPERATURE, group).numpy()
         out["eid"] = mat.fwd.eid.numpy()
 
-    # the AttIGCN step
-    n = N_USERS + N_ITEMS
-    (ar, ac, av), (fr, fc, fv, row_sum) = step_inputs["adj"], step_inputs["feat"]
-    adj = build_edge_sharded_spmm(ar, ac, av, (n, n), S, s)
-    feat = build_edge_sharded_spmm(fr, fc, fv, (n, step_inputs["feat_n_cols"]), S, s)
+    # the AttIGCN step: IGCNTrainer in edge mode
+    from inductive_recommendation_tpu_torch import get_model, get_trainer
+    from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset
+
+    ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=4)
+    cfg = {"name": "AttIGCN", "embedding_size": D, "n_layers": N_LAYERS, "dropout": 0.0, "n_heads": N_HEADS}
+    tcfg = {"name": "IGCNTrainer", "optimizer": "Adam", "lr": LR, "l2_reg": L2, "aux_reg": AUX, "batch_size": BATCH,
+            "test_batch_size": BATCH, "topks": [20], "n_epochs": 1}
+    trainer = get_trainer(tcfg, ds, get_model(cfg, ds, device="cpu"), mesh=mesh, mesh_mode="edge")
+    assert trainer.model.feat_n_cols == step_inputs["feat_n_cols"] and trainer.model.temperature == math.sqrt(D) * 10.0
     init = {k: torch.as_tensor(a) for k, a in step_inputs["init"].items()}
-    params = {k: (local_rows(a, mesh, n_rows=feat.n_cols_pad) if k == "embedding" else a.clone()).requires_grad_(True)
-              for k, a in init.items()}
-    opt = torch.optim.Adam(params.values(), lr=LR)
-    step = make_edge_sharded_att_igcn_step(feat, adj, torch.as_tensor(row_sum), mesh, opt, params, BATCH, L2, AUX,
-                                           N_USERS, step_inputs["user_dim"], N_LAYERS, N_HEADS, math.sqrt(D) * 10.0)
+    init["embedding"] = init["embedding"][: trainer.model.feat_n_cols]
+    trainer._restore_params(init)
     out["losses"] = []
     for b in step_inputs["batches"]:
-        out["losses"].append(float(step(*(torch.as_tensor(a) for a in b))))
+        out["losses"].append(float(trainer.step(*(torch.as_tensor(a) for a in b))))
         if "grads" not in out:  # the first step's, the table's gathered (Adam leaves them in .grad)
             out["grads"] = {k: (gather_rows(p.grad, mesh) if k == "embedding" else p.grad).numpy().copy()
-                            for k, p in params.items()}
-    out["table"] = gather_rows(params["embedding"], mesh).numpy()
-    out["rep"] = step.eval_rep().numpy()
+                            for k, p in trainer.params.items()}
+    out["table"] = gather_rows(trainer.params["embedding"], mesh).numpy()
+    with trainer.model.placed(trainer.placement):
+        out["rep"] = trainer.model.make_scoring_state(trainer.params).numpy()
     return out
 
 

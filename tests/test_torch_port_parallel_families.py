@@ -1,23 +1,26 @@
-"""The port's edge-sharded steps of the other families (``parallel/step.py``)
-against the JAX package's ``make_edge_sharded_*_step`` under ``shard_map``
-(conftest's 8 virtual CPU devices): the DOSE step in its four contrastive
-modes (DOSE_aug and DOSE_aug2 ``single``, DOSE_aug_drop ``double_same``,
-TEST2 ``cross``, DOSE_test ``mean``), SGL (``cross``) and HALF (``single``),
-NGCF, IMCGAE and IDCF_LGCN, at S = 1, 2, 4 and on the hybrid (2, 2) mesh for
-DOSE_aug and SGL.
+"""Edge mode of the other families against the JAX package's
+``make_edge_sharded_*_step`` under ``shard_map`` (conftest's 8 virtual CPU
+devices): each model's own forward and its named trainer's own objective
+under the edge placement (``get_trainer(..., mesh_mode="edge")``), for the
+DOSE step's four contrastive modes (DOSE_aug and DOSE_aug2 ``single``,
+DOSE_aug_drop ``double_same``, TEST2 ``cross``, DOSE_test ``mean``), SGL
+(``cross``) and HALF (``single``), NGCF, IMCGAE and IDCF_LGCN, at S = 1, 2, 4
+and on the hybrid (2, 2) mesh for DOSE_aug and SGL.
 
 JAX draws its batches (and IDCF's samples) inside its steps; they are drawn
-here the same way and handed to the port's steps. Both sides get the same
-views: the port's view CSRs are built by its ``ViewEngine`` from the pairs
-and keep masks JAX's ``make_view`` gets, and their COO triples are sharded on
-the rank's device (``build_edge_sharded_on_device``); DOSE_aug2's augmented
-feature matrix likewise (``build_aug_feat_csr`` against JAX's
-``prepare_aug_feat``). Dropout is 0 (JAX's per-shard masks are its own).
+here the same way and handed to the port's trainers (IDCF's samples through
+its model's ``draw_samples``). Both sides get the same views: the port's
+view CSRs are built by its ``ViewEngine`` from the pairs and keep masks
+JAX's ``make_view`` gets, and become the model's views, which the placement
+shards on the rank's device; DOSE_aug2's augmented feature matrix likewise
+(``build_aug_feat_csr`` against JAX's ``prepare_aug_feat``). Both sides
+start from JAX's init weights. Dropout is 0 (JAX's per-shard masks are its
+own).
 Losses after 3 Adam steps agree within 1e-5 * max(1, max |ref|). Tables
 agree within 1e-4: Adam's step does not shrink with the gradient, so an
 entry whose gradient is at fp32 noise moves by up to lr (1e-3) in a
 direction the order of the sums decides. The DOSE runs anneal alpha before
-the third step.
+the third step (the model's ``feat_mat_anneal``).
 
 The families whose replicated weights get their gradient through the
 port's ``collectives.shared`` backward (NGCF's per-layer linears,
@@ -49,7 +52,10 @@ HYBRID = ("DOSE_aug", "SGL")
 # families whose first step's gradients are held to JAX's
 GRAD_FAMILIES = ("NGCF", "IMCGAE", "IDCF_LGCN")
 
-# family -> (model config, step kind, contrastive mode)
+# family -> (model config, step kind, contrastive mode); the trainer each runs under
+TRAINER_OF = {"DOSE_aug": "DOSEaugTrainer", "DOSE_aug2": "DOSEaugTrainer", "DOSE_aug_drop": "DOSEdropTrainer",
+              "TEST2": "DOSEtestTrainer", "DOSE_test": "DOSEtestTrainer", "SGL": "SGLTrainer", "HALF": "HALFTrainer",
+              "NGCF": "BPRTrainer", "IMCGAE": "BPRTrainer", "IDCF_LGCN": "IDCFTrainer"}
 FAMILIES = {
     "DOSE_aug": ({"name": "DOSE_aug", "aug_num": 30}, "dose", "single"),
     "DOSE_aug2": ({"name": "DOSE_aug2", "aug_num": 30}, "dose", "single"),
@@ -212,97 +218,69 @@ def setup():
 # -- the rank side (no JAX) -----------------------------------------------------------
 
 
-def family_ranks(inputs):
-    import types
+def _csr(coo, shape, **flags):
+    import torch
 
+    from inductive_recommendation_tpu_torch.ops.csr_spmm import csr_on_device
+
+    rows, cols, vals, eid = (torch.as_tensor(a) for a in coo)
+    return csr_on_device(rows, cols, vals, shape, eid=eid, **flags)
+
+
+def family_ranks(inputs):
     import torch
     import torch.distributed as dist
 
-    from inductive_recommendation_tpu_torch.parallel import build_edge_sharded_spmm, make_mesh
-    from inductive_recommendation_tpu_torch.parallel.mesh import axis_size, gather_rows, local_rows
-    from inductive_recommendation_tpu_torch.parallel.spmm import build_edge_sharded_on_device
-    from inductive_recommendation_tpu_torch.parallel.step import (
-        make_edge_sharded_dose_step,
-        make_edge_sharded_idcf_step,
-        make_edge_sharded_imcgae_step,
-        make_edge_sharded_ngcf_step,
-        make_edge_sharded_sgl_step,
-    )
+    from inductive_recommendation_tpu_torch import get_model, get_trainer
+    from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset
+    from inductive_recommendation_tpu_torch.parallel import make_mesh
+    from inductive_recommendation_tpu_torch.parallel.mesh import gather_rows
 
     n = N_USERS + N_ITEMS
+    ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=4)
     out = {}
     for shape in WORLDS[dist.get_world_size()]:
         mesh = make_mesh(*shape)
-        S, s = axis_size(mesh, "model"), mesh.get_local_rank("model")
-        for family, (_, kind, mode) in FAMILIES.items():
+        for family, (cfg, kind, mode) in FAMILIES.items():
             if shape == (2, 2) and family not in HYBRID:
                 continue
             fam = inputs["families"][family]
+            cfg = dict(BASE, **cfg)
+            if kind == "idcf":
+                cfg["pretrained_embedding"] = fam["frozen"]
+            tcfg = {"name": TRAINER_OF[family], "optimizer": "Adam", "lr": LR, "l2_reg": L2, "aux_reg": AUX,
+                    "contrastive_reg": CREG, "batch_size": BATCH, "test_batch_size": BATCH, "topks": [20],
+                    "n_epochs": 1}
+            trainer = get_trainer(tcfg, ds, get_model(cfg, ds, device="cpu"), mesh=mesh, mesh_mode="edge")
+            model = trainer.model
             init = {k: torch.as_tensor(v) for k, v in fam["init"].items()}
-
-            def shard(coo, shape_, s=S, r=s):
-                return build_edge_sharded_spmm(*coo, shape_, s, r)
-
-            def on_device(coo, shape_, route, s=S, r=s):
-                return build_edge_sharded_on_device(*(torch.as_tensor(a) for a in coo), shape_, s, r, route=route)
-
-            adj = shard(inputs["adj"], (n, n))
-            params = {}
-            if kind in ("dose", "sgl", "ngcf"):
-                table_mat = adj if kind != "dose" else shard(inputs["feat"][:3], (n, n + 2))
-                params["embedding"] = local_rows(init["embedding"], mesh, n_rows=table_mat.n_cols_pad)
-            if kind == "imcgae":
-                params["embedding"] = local_rows(init["embedding"][:n], mesh, n_rows=adj.n_cols_pad)
-                params["special"] = init["embedding"][n : n + 3].clone()
-            params.update({k: v.clone() for k, v in init.items() if k != "embedding"})
-            params = {k: v.requires_grad_(True) for k, v in params.items()}
-            opt = torch.optim.Adam(params.values(), lr=LR)
+            if "embedding" in init:  # the table's rows past the model's are never read
+                init["embedding"] = init["embedding"][: model.embedding.shape[0]]
+            trainer._restore_params(init)
+            if kind in ("dose", "sgl"):  # JAX's views; a key with no view of its own reads the first
+                views = [_csr(c, (n, n), symmetric=True, route="view") for c in fam["views"]]
+                model.views = {k: views[i] if i < len(views) else views[0] for i, k in enumerate(model.view_keys)}
+            if "aug_feat" in fam:  # with its transpose, as the model builds it
+                rows, cols, vals, eid = fam["aug_feat"]
+                transpose = _csr((cols, rows, vals, eid), (n + 2, n), transposed=True, route="aug_feat")
+                model.aug_feat = _csr(fam["aug_feat"], (n, n + 2), transpose=transpose, route="aug_feat")
             batches = [[torch.as_tensor(a) for a in b] for b in fam["batches"]]
-            got = {}
-
-            def first_grads(loss, params=params, got=got, mesh=mesh):
-                # the first step's gradients, the table's gathered (Adam leaves them in .grad)
-                if "grads" not in got:
-                    got["grads"] = {k: (gather_rows(p.grad, mesh) if k == "embedding" else p.grad).numpy().copy()
-                                    for k, p in params.items()}
-                return float(loss)
-            if kind == "dose":
-                feat = table_mat
-                views = tuple(on_device(c, (n, n), "edge_shard_view") for c in fam["views"])
-                aug = on_device(fam["aug_feat"], (n, n + 2), "edge_shard_aug_feat") if "aug_feat" in fam else None
-                step = make_edge_sharded_dose_step(
-                    feat, adj, torch.as_tensor(inputs["feat"][3]), mesh, opt, params, BATCH, L2, AUX, CREG, N_USERS,
-                    N_USERS, N_LAYERS, 0.0, contrastive=mode,
-                )
-                losses = [first_grads(step(*b, views, alpha=a, aug_feat=aug)) for b, a in zip(batches, ALPHAS)]
-            elif kind == "sgl":
-                views = tuple(on_device(c, (n, n), "edge_shard_view") for c in fam["views"])
-                step = make_edge_sharded_sgl_step(adj, mesh, opt, params, BATCH, L2, CREG, N_USERS, N_LAYERS,
-                                                  contrastive=mode)
-                losses = [first_grads(step(*b, views)) for b in batches]
-            elif kind == "ngcf":
-                step = make_edge_sharded_ngcf_step(shard(inputs["selfloop"], (n, n)), mesh, opt, params, BATCH, L2,
-                                                   N_USERS, N_LAYERS, 0.0)
-                losses = [first_grads(step(*b)) for b in batches]
-            elif kind == "imcgae":
-                step = make_edge_sharded_imcgae_step(adj, mesh, opt, params, BATCH, L2, N_USERS, N_LAYERS, 0.0,
-                                                     -(-(D + 3) // 4) * 4)
-                losses = [first_grads(step(*b)) for b in batches]
-            else:
-                feat = shard(inputs["idcf_feat"], (n, n))
+            if kind == "idcf":
                 samples = iter([b[3] for b in batches])
-                model = types.SimpleNamespace(
-                    n_users=N_USERS, n_old_users=N_USERS, n_headers=N_HEADS, n_samples=N_SAMPLES, n_layers=N_LAYERS,
-                    draw_samples=lambda generator: next(samples),
-                )
-                frozen = local_rows(torch.as_tensor(fam["frozen"]), mesh, n_rows=feat.n_cols_pad)
-                step = make_edge_sharded_idcf_step(model, feat, adj, frozen, mesh, opt, params, BATCH, L2, CREG)
-                losses = [first_grads(step(*b[:3])) for b in batches]
-            got["losses"] = losses
-            if "embedding" in params:
-                got["table"] = gather_rows(params["embedding"].detach(), mesh).numpy()
+                model.draw_samples = lambda generator=None, samples=samples: next(samples)
+            got = {"losses": []}
+            for i, b in enumerate(batches):
+                if kind == "dose" and ALPHAS[i] != model.alpha:
+                    model.feat_mat_anneal()
+                    assert model.alpha == ALPHAS[i]
+                got["losses"].append(float(trainer.step(*b[:6 if kind == "dose" else 3])))
+                if i == 0:  # the first step's, the table's gathered (Adam leaves them in .grad)
+                    got["grads"] = {k: (gather_rows(p.grad, mesh) if k == "embedding" else p.grad).numpy().copy()
+                                    for k, p in trainer.params.items()}
+            if "embedding" in trainer.params:
+                got["table"] = gather_rows(trainer.params["embedding"].detach(), mesh).numpy()
             else:
-                got["table"] = params["w_out.w"].detach().numpy()
+                got["table"] = trainer.params["w_out.w"].detach().numpy()
             out[(shape, family)] = got
     return out
 
@@ -427,22 +405,24 @@ def test_edge_step_matches_jax(runs, jax_runs, world, shape, family):
 
 
 def test_view_shard_keeps_global_edge_ids(setup):
-    """A view shard cut on the device keeps the whole view's edge ids, its
-    row window holds every edge of its column block, and its transpose has
-    the same triples."""
+    """A view shard cut on the device from the whole view keeps its edge
+    ids, its row window holds every edge of its column block, and its
+    transpose has the same triples."""
     import torch
 
-    from inductive_recommendation_tpu_torch.ops.csr_spmm import spmm_csr_reference
-    from inductive_recommendation_tpu_torch.parallel.spmm import build_edge_sharded_on_device
+    from inductive_recommendation_tpu_torch.ops.csr_spmm import csr_on_device, spmm_csr_reference
+    from inductive_recommendation_tpu_torch.parallel.spmm import shard_csr
 
     _, inputs, _ = setup
     rows, cols, vals, eid = (torch.as_tensor(a) for a in inputs["families"]["DOSE_aug"]["views"][0])
     n = N_USERS + N_ITEMS
+    transpose = csr_on_device(cols, rows, vals, (n, n), eid=eid, transposed=True, route="view")
+    whole = csr_on_device(rows, cols, vals, (n, n), eid=eid, transpose=transpose, route="view")
     x = torch.randn(n, 5, dtype=torch.float64)
     dense = torch.zeros(n, n, dtype=torch.float64).index_put_((rows, cols), vals.double(), accumulate=True)
     total, seen = torch.zeros(n, 5, dtype=torch.float64), []
     for r in range(3):
-        sh = build_edge_sharded_on_device(rows, cols, vals, eid, (n, n), 3, r, route="edge_shard_view")
+        sh = shard_csr(whole, 3, r, route="edge_shard_view")
         blk = sh.block
         xs = torch.zeros(blk, 5, dtype=torch.float64)
         part = x[r * blk : (r + 1) * blk]

@@ -1,13 +1,13 @@
-"""The port's trainers of every family on a mesh: ``EdgeShardedTrainer``
-for the DOSE variants, SGL, HALF, NGCF, IMCGAE, IDCF_LGCN and AttIGCN, and
-data mode for the eight trainers of those families and of NeuMF and
+"""The port's trainers of every family on a mesh: edge mode (the named
+trainer under the edge placement) for the DOSE variants, SGL, HALF, NGCF,
+IMCGAE, IDCF_LGCN and AttIGCN, and data mode for the eight trainers of those families and of NeuMF and
 MultiVAE, each 2 epochs (NeuMF 3, one a phase) in 2 gloo ranks with dropout
 on, against the port's single-device trainer of the same seed (the same
 init, batches, dropout masks and views, the views' refresh at the epoch end
 included): epoch losses within 1e-5, test metrics within 1e-6.
 
 Also: every family JAX's edge trainer accepts builds and steps in edge mode
-(all 13 DOSE names) and every trainer in data mode; the best checkpoints of
+(all 13 DOSE names) as its named trainer, and every trainer in data mode; the best checkpoints of
 a DOSE_aug and an AttIGCN edge run load into single-device trainers with
 their test metrics; the saved state of a DOSE_aug, a TEST2 and an SGL edge
 run replays their views and shards bit for bit in a fresh edge trainer;
@@ -122,6 +122,11 @@ def _grown(ds, n_new_users=12, n_new_items=10, seed=8):
     return g
 
 
+def _view_shards(trainer):
+    """This rank's shards of the model's views (the edge placement's)."""
+    return [trainer.placement.shard(trainer.model.views[k]) for k in trainer.model.view_keys]
+
+
 def _run(trainer):
     """Train, recording each epoch's loss; -> (losses, best val NDCG)."""
     losses, one_epoch = [], trainer.train_one_epoch
@@ -161,7 +166,7 @@ def trainer_ranks(workdir, jax_inputs):
             fresh.load_state(state)
             out["cases"][key]["replayed"] = all(
                 torch.equal(a.fwd.eid, b.fwd.eid) and torch.equal(a.fwd.val, b.fwd.val) and a.row_lo == b.row_lo
-                for a, b in zip(trainer.view_shards, fresh.view_shards)
+                for a, b in zip(_view_shards(trainer), _view_shards(fresh))
             ) and all(torch.equal(p, q) for p, q in zip(trainer.params.values(), fresh.params.values()))
         if key in INDUCTIVE:
             out["cases"][key]["params"] = {k: v.detach().numpy() for k, v in trainer._model_params().items()}
@@ -282,13 +287,13 @@ def test_edge_state_replays_views(runs, key):
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_every_family_builds_and_steps(runs, name):
-    """Edge mode takes every family JAX's edge trainer takes; data mode
-    every trainer."""
+    """Edge mode takes every family JAX's edge trainer takes, as its named
+    trainer; data mode every trainer."""
     built = runs[0]["built"]
     modes = ("edge", "data") if name in EDGE_FAMILIES else ("data",)
     for mode in modes:
         cls, loss = built[(name, mode)]
-        assert math.isfinite(loss) and cls == ("EdgeShardedTrainer" if mode == "edge" else TRAINER_OF[name])
+        assert math.isfinite(loss) and cls == TRAINER_OF[name]
         assert all(r["built"][(name, mode)] == (cls, loss) for r in runs)
 
 

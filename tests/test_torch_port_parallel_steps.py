@@ -1,9 +1,11 @@
 """The port's sharded training steps (``parallel/step.py``) against the JAX
-package's: edge-mode LightGCN (BPR) and IGCN at S = 2 and 4 and on the
-hybrid (2, 2) mesh against ``make_edge_sharded_bpr_step`` /
+package's: edge mode, ``BPRTrainer`` on LightGCN and ``IGCNTrainer`` on IGCN
+under the edge placement (``get_trainer(..., mesh_mode="edge")``: the
+trainer's own objective over the model's own forward), at S = 2 and 4 and
+on the hybrid (2, 2) mesh against ``make_edge_sharded_bpr_step`` /
 ``make_edge_sharded_igcn_step`` under ``shard_map`` (conftest's 8 virtual
-CPU devices), and data mode on (2, 2) (``get_trainer(..., mesh=)``, the
-path training runs) against the port's single-device trainer.
+CPU devices), and data mode on (2, 2) (``get_trainer(..., mesh=)``) against
+the port's single-device trainer.
 
 JAX draws its batches inside its steps; they are drawn here the same way
 (the step counter folded into the base seed, ``sample_bpr_batch`` on the
@@ -13,7 +15,10 @@ both sides. Dropout is 0 against JAX (its per-shard masks are its own);
 data mode runs IGCN at dropout 0.3, whose masks, keyed by the global edge
 id, are the single-device ones. Loss and parameters after 3 Adam steps
 agree within 1e-5 * max(1, max |ref|) (fp32 sums in another order). The
-IGCN runs anneal alpha before the third step.
+IGCN runs anneal alpha before the third step (the model's
+``feat_mat_anneal``, alpha 0.99). Both sides build their graphs from the
+same synthetic set, each with its own package's builders, and start from
+the same weights.
 """
 
 import numpy as np
@@ -79,19 +84,28 @@ def _n_pad(n, S):
 # -- the rank side (no JAX) -------------------------------------------------------
 
 
+def _trainer(family, ds, mesh, mesh_mode, dropout):
+    from inductive_recommendation_tpu_torch import get_model, get_trainer
+
+    name, trainer = ("LightGCN", "BPRTrainer") if family == "bpr" else ("IGCN", "IGCNTrainer")
+    cfg = {"name": name, "embedding_size": D, "n_layers": N_LAYERS, "dropout": dropout, "feature_ratio": 1.0}
+    tcfg = {"name": trainer, "optimizer": "Adam", "lr": LR, "l2_reg": L2, "aux_reg": AUX, "batch_size": BATCH,
+            "test_batch_size": BATCH, "topks": [20], "n_epochs": 1, "seed": 7}
+    # each trainer re-initialises the model's weights from its seed
+    return get_trainer(tcfg, ds, get_model(cfg, ds, device="cpu"), mesh=mesh, mesh_mode=mesh_mode)
+
+
 def steps_ranks(inputs):
     import torch
     import torch.distributed as dist
 
-    from inductive_recommendation_tpu_torch import get_model, get_trainer
     from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset
-    from inductive_recommendation_tpu_torch.parallel import build_edge_sharded_spmm, make_mesh
+    from inductive_recommendation_tpu_torch.parallel import make_mesh
     from inductive_recommendation_tpu_torch.parallel.mesh import axis_size, gather_rows
-    from inductive_recommendation_tpu_torch.parallel.step import make_edge_sharded_bpr_step, make_edge_sharded_igcn_step
 
     world = dist.get_world_size()
     n = N_USERS + N_ITEMS
-    (ar, ac, av), (fr, fc, fv, row_sum) = inputs["adj"], inputs["feat"]
+    ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=4)
     out = {}
 
     def tensors(batch):
@@ -99,41 +113,29 @@ def steps_ranks(inputs):
 
     for shape in EDGE_CASES[world]:
         mesh = make_mesh(*shape)
-        S, s = axis_size(mesh, "model"), mesh.get_local_rank("model")
+        S = axis_size(mesh, "model")
         for family in ("bpr", "igcn"):
-            adj = build_edge_sharded_spmm(ar, ac, av, (n, n), S, s)
+            t = _trainer(family, ds, mesh, "edge", 0.0)
             emb, w = inputs["init"][(family, S)]
-            if family == "bpr":
-                params = {"embedding": torch.as_tensor(emb[s * adj.block : (s + 1) * adj.block]).clone().requires_grad_()}
-                opt = torch.optim.Adam(params.values(), lr=LR)
-                step = make_edge_sharded_bpr_step(adj, mesh, opt, params, BATCH, L2, N_USERS, N_LAYERS)
-                losses = [float(step(*tensors(b))) for b in inputs["batches"]["bpr"]]
-            else:
-                feat = build_edge_sharded_spmm(fr, fc, fv, (n, n + 2), S, s)
-                params = {
-                    "embedding": torch.as_tensor(emb[s * feat.block : (s + 1) * feat.block]).clone().requires_grad_(),
-                    "w": torch.as_tensor(w).clone().requires_grad_(),
-                }
-                opt = torch.optim.Adam(params.values(), lr=LR)
-                step = make_edge_sharded_igcn_step(
-                    feat, adj, torch.as_tensor(row_sum), mesh, opt, params, BATCH, L2, AUX, N_USERS, N_USERS,
-                    N_LAYERS, 0.0,
-                )
-                losses = [float(step(*tensors(b), alpha=a)) for b, a in zip(inputs["batches"]["igcn"], ALPHAS)]
-            table = gather_rows(params["embedding"], mesh).numpy()
-            out[("edge", shape, family)] = (losses, table, params.get("w", torch.zeros(0)).detach().numpy())
+            init = {"embedding": torch.as_tensor(emb[: n + (2 if family == "igcn" else 0)])}
+            if family == "igcn":
+                init["w"] = torch.as_tensor(w)
+            t._restore_params(init)
+            losses = []
+            for i, b in enumerate(inputs["batches"][family]):
+                if family == "igcn" and ALPHAS[i] != t.model.alpha:
+                    t.model.feat_mat_anneal()
+                    assert t.model.alpha == ALPHAS[i]
+                losses.append(float(t.step(*tensors(b))))
+            table = gather_rows(t.params["embedding"], mesh).numpy()
+            out[("edge", shape, family)] = (losses, table, t.params.get("w", torch.zeros(0)).detach().numpy())
 
     if world == 4:  # data mode on (2, 2) against the single-device trainer of the same batches and masks
         mesh = make_mesh(2, 2)
-        ds = quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=4)
-        for family, name, trainer in (("bpr", "LightGCN", "BPRTrainer"), ("igcn", "IGCN", "IGCNTrainer")):
-            cfg = {"name": name, "embedding_size": D, "n_layers": N_LAYERS, "dropout": 0.3, "feature_ratio": 1.0}
-            tcfg = {"name": trainer, "optimizer": "Adam", "lr": LR, "l2_reg": L2, "aux_reg": AUX, "batch_size": BATCH,
-                    "test_batch_size": BATCH, "topks": [20], "n_epochs": 1, "seed": 7}
+        for family in ("bpr", "igcn"):
             runs = {}
             for mode, mesh_arg in (("single", None), ("data", mesh)):
-                # each trainer re-initialises the model's weights from its seed
-                t = get_trainer(tcfg, ds, get_model(cfg, ds, device="cpu"), mesh=mesh_arg)
+                t = _trainer(family, ds, mesh_arg, "data", 0.3)
                 losses = [float(t.step(*tensors(b))) for b in inputs["batches"][family]]
                 runs[mode] = (losses, t._model_params()["embedding"].detach().numpy())
             out[("data", family)] = runs

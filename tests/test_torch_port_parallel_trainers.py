@@ -1,5 +1,5 @@
-"""The port's trainers on a mesh: ``EdgeShardedTrainer`` (IGCN and LightGCN)
-and data-mode ``IGCNTrainer`` / ``BPRTrainer``, 2 epochs in 2 gloo ranks,
+"""The port's trainers on a mesh: ``IGCNTrainer`` / ``BPRTrainer`` in edge
+mode (IGCN and LightGCN) and in data mode, 2 epochs in 2 gloo ranks,
 against the port's single-device trainers of the same seed (the same init,
 batches and dropout masks: epoch losses within 1e-5, metrics within 1e-6);
 a best checkpoint saved under the mesh and loaded by a single-device

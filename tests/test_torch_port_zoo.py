@@ -30,7 +30,7 @@ from inductive_recommendation_tpu.utils.profiles import dense_profiles as jax_de
 from inductive_recommendation_tpu_torch import get_model
 from inductive_recommendation_tpu_torch.data import ProcessedDataset, device_padded_from_lists
 from inductive_recommendation_tpu_torch.data import quick_synthetic_dataset as port_quick_synthetic_dataset
-from inductive_recommendation_tpu_torch.models import flatten_params, ngcf as ngcf_module, params_from_jax
+from inductive_recommendation_tpu_torch.models import flatten_params, params_from_jax, placement as placement_module
 from inductive_recommendation_tpu_torch.ops.csr_spmm import dropout_values
 from inductive_recommendation_tpu_torch.ops.dropout import node_dropout_mask, sparse_dropout
 from inductive_recommendation_tpu_torch.train import bce_losses, bpr_loss, multinomial_ll_loss
@@ -360,13 +360,13 @@ def test_ngcf_one_edge_mask_for_every_layer(ds, monkeypatch):
     tm = get_model(cfg, ds, device="cpu")
     tp = tm.params()
     seeds = []
-    real = ngcf_module.spmm_csr_dropout
+    real = placement_module.spmm_csr_dropout
 
     def recording(mat, x, seed, p):
         seeds.append((seed, p))
         return real(mat, x, seed, p)
 
-    monkeypatch.setattr(ngcf_module, "spmm_csr_dropout", recording)
+    monkeypatch.setattr(placement_module, "spmm_csr_dropout", recording)
     gen = torch.Generator().manual_seed(3)
     state = gen.get_state()
     rep = tm.get_rep(tp, training=True, generator=gen)
@@ -380,7 +380,7 @@ def test_ngcf_one_edge_mask_for_every_layer(ds, monkeypatch):
     masked.index_put_((adj.edge_rows().long(), adj.col.long()),
                       dropout_values(adj.val, adj.eid, *seeds[0]).double(), accumulate=True)
     gen.set_state(state)
-    monkeypatch.setattr(ngcf_module, "spmm_csr_dropout", lambda mat, x, seed, p: (masked @ x.double()).float())
+    monkeypatch.setattr(placement_module, "spmm_csr_dropout", lambda mat, x, seed, p: (masked @ x.double()).float())
     dense_rep = tm.get_rep(tp, training=True, generator=gen)
     np.testing.assert_allclose(rep.detach().numpy(), dense_rep.detach().numpy(), rtol=1e-5, atol=1e-6)
     w = torch.as_tensor(np.random.default_rng(0).standard_normal(rep.shape), dtype=torch.float32)
