@@ -42,7 +42,18 @@ Phases, each of which raises on failure (the exit code is then not 0):
    launches bitwise; no synchronisation in the call
    (``torch.cuda.set_sync_debug_mode("error")``), the wrapper's count two
    launches a call; its time (single, windowed, device) beside the plain
-   version's and the byte bound; and its launches in an ``evaluate``;
+   version's and the byte bound; and its launches in an ``evaluate``.
+   Then the evaluation's masked top-k kernel (``ops/csrc/masked_topk.cu``,
+   ``masked_topk_phase``) on edge cases (k 1 and 128, k = n_items, an odd
+   n_items, ties at the k-th place few and over 2,048, fewer
+   eligible items than k, a row of -inf, rows cut in chunks) and at the
+   eval's shape (512 rows x 40,981 items, k 100, exclusion widths 64, 256
+   and 1,024, a banned range) and Amazon-Book's 91,599 items (two
+   launches): values equal to the plain path's (``mask_scores`` +
+   ``torch.topk``), ids to a stable descending sort's, two calls bitwise;
+   no synchronisation, the wrapper's count, its time (single, windowed,
+   device) beside the plain path's and the byte bound; one launch a batch
+   in an ``evaluate``;
 7. train: IGCN's training path on a fresh model. First its trainer's two
    samplers through the BPR draw's kernel (``ops/csrc/bpr_sample.cu``,
    ``sampler_phase``): each draw bitwise the plain torch ops' on the card
@@ -284,6 +295,7 @@ from inductive_recommendation_tpu_torch.ops import (
 from inductive_recommendation_tpu_torch.models import att_igcn
 from inductive_recommendation_tpu_torch.models.base import linear
 from inductive_recommendation_tpu_torch.ops import attention_csr
+from inductive_recommendation_tpu_torch.ops import topk as topk_ops
 from inductive_recommendation_tpu_torch.ops.attention_spmm import folded_query, fused_kv_attention_reference
 from inductive_recommendation_tpu_torch.ops.csr_spmm import EDGES_PER_CHUNK, dropout_values
 from inductive_recommendation_tpu_torch.ops.csr_spmm import reset_launch_counts as reset_spmm_counts
@@ -433,10 +445,11 @@ def log(*args):
 
 def reset_launch_counts():
     """Every kernel's launch counts to 0: the SpMM's, the attention kernels',
-    the metric sums' and the BPR draw's."""
+    the metric sums', the masked top-k's and the BPR draw's."""
     reset_spmm_counts()
     attention_csr.reset_launch_counts()
     device_metrics.batch_metric_sums_cuda.launches = 0
+    topk_ops.masked_topk_cuda.launches = 0
     sampling.sample_bpr_batch_cuda.launches = 0
 
 
@@ -1596,6 +1609,147 @@ def metric_sums_phase(card, rng) -> dict:
             f"launches a call {row['plain_device_ms_and_launches']}; bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}); then {row['clocks_after']}")
         rows[route] = row
+    return rows
+
+
+TOPK_KERNEL_NAMES = ("masked_topk_kernel<false>", "masked_topk_kernel<true>")
+AMAZON_BOOK_ITEMS = 91_599  # Amazon-Book's published item count: rows the top-k kernel cuts in two
+
+
+def topk_scores(rng, rows, n_items, d=64) -> torch.Tensor:
+    """[rows, n_items] fp32 scores on the card as the evaluation makes them:
+    the product of d-wide user and item rows drawn N(0, 0.1^2)."""
+    u = torch.as_tensor(rng.normal(0.0, 0.1, (rows, d)), dtype=torch.float32, device="cuda")
+    i = torch.as_tensor(rng.normal(0.0, 0.1, (n_items, d)), dtype=torch.float32, device="cuda")
+    return u @ i.T
+
+
+def topk_exclusions(rng, rows, n_items, width) -> torch.Tensor:
+    """[rows, width] int32 on the card, as an evaluator's bucket of that width
+    holds them: each row a quarter to all of the width in distinct ids (one
+    repeated), then the sentinel n_items."""
+    excl = np.full((rows, width), n_items, dtype=np.int32)
+    for r, n in enumerate(rng.integers(width // 4, width + 1, rows)):
+        excl[r, :n] = rng.choice(n_items, size=n, replace=False)
+        excl[r, 0] = excl[r, n - 1]
+    return torch.as_tensor(excl, device="cuda")
+
+
+def check_masked_topk(what, scores, k, excl, banned) -> dict:
+    """The kernel on one block of rows: two calls bitwise equal; its values
+    exactly the plain path's (``mask_scores`` + ``torch.topk`` on the card);
+    its ids exactly those of a stable descending sort of the masked rows
+    (ties by the lower id, as JAX's ``lax.top_k``). Returns how many ids
+    differ from the plain path's, all at tied values."""
+    got_v, got_i = twice(what, lambda: topk_ops.masked_topk_cuda(scores, k, excl, banned))
+    masked = topk_ops.mask_scores(scores, excl, banned)
+    plain_v, plain_i = torch.topk(masked, k, dim=1)
+    if not torch.equal(got_v, plain_v):
+        raise AssertionError(f"{what}: values differ from the plain path's")
+    want_v, want_i = torch.sort(masked, dim=1, descending=True, stable=True)
+    if not (torch.equal(got_i, want_i[:, :k]) and torch.equal(got_v, want_v[:, :k])):
+        bad = int((got_i != want_i[:, :k]).sum())
+        raise AssertionError(f"{what}: {bad} ids differ from the stable sort's (value desc, id asc)")
+    # the values are equal, so an id that differs from the plain path's ties with it
+    return {"ids_differing_from_plain_at_ties": int((got_i != plain_i).sum())}
+
+
+def masked_topk_phase(card, rng) -> dict:
+    """The evaluation's masked top-k kernel (``ops/csrc/masked_topk.cu``) on
+    the card: edge cases (k 1 and 128, k = n_items, an odd n_items with a
+    banned tenth, few and over 2,048 ties at the k-th place, fewer
+    eligible items than k, a row of -inf, rows cut in chunks), each checked
+    (``check_masked_topk``); then the eval's shape (512 rows x 40,981 items,
+    k 100; exclusion widths 64, 256 and 1,024 as the buckets give them; a
+    banned range at width 64, as the inductive slices ban) and Amazon-Book's
+    91,599 items (two launches): checked, no synchronisation in the call, the
+    wrapper's count, the host's enqueue, single and windowed times beside the
+    plain path's, the device time a launch, and the bound (the scores read
+    once). Returns the shapes' numbers."""
+    n = N_ITEMS
+    edge = {
+        "k 1": (topk_scores(rng, 37, n), 1, topk_exclusions(rng, 37, n, 64), None),
+        "k 128 (MAX_K)": (topk_scores(rng, 37, n), topk_ops.MAX_K, topk_exclusions(rng, 37, n, 256), None),
+        "k = n_items 41": (topk_scores(rng, 9, 41), 41, topk_exclusions(rng, 9, 41, 8), None),
+        "odd n_items 997, a banned tenth": (topk_scores(rng, 33, 997), 100, topk_exclusions(rng, 33, 997, 64),
+                                            torch.as_tensor(rng.random(997) < 0.1, device="cuda")),
+    }
+    ties = torch.round(topk_scores(rng, 8, n) * 20.0) / 20.0  # a few hundred levels
+    ties[0] = 0.25  # every item ties
+    ties[1, torch.as_tensor(rng.permutation(n)[:5000], device="cuda")] = 7.0  # 5,000 tie at the top
+    edge["ties, few and over 2,048"] = (ties, 100, topk_exclusions(rng, 8, n, 256), None)
+    few = topk_scores(rng, 4, 300)
+    few[3] = -math.inf
+    excl = topk_exclusions(rng, 4, 300, 300)
+    excl[0, :250] = torch.as_tensor(rng.permutation(300)[:250], dtype=torch.int32, device="cuda")
+    excl[1] = torch.arange(300, dtype=torch.int32, device="cuda")
+    edge["fewer eligible than k, all -inf"] = (few, 100, excl, None)
+    edge["cut rows, Amazon-Book width"] = (topk_scores(rng, 16, AMAZON_BOOK_ITEMS), 100,
+                                           topk_exclusions(rng, 16, AMAZON_BOOK_ITEMS, 1024), None)
+    differing = 0
+    for what, (scores, k, ex, banned) in edge.items():
+        differing += check_masked_topk(what, scores, k, ex, banned)["ids_differing_from_plain_at_ties"]
+    log(f"masked top-k: {len(edge)} edge cases, values equal to the plain path's, ids to the stable sort's, bitwise "
+        f"repeatable; {differing} ids differ from the plain path's, all at ties")
+    rows = {}
+    banned_range = torch.zeros(n, dtype=torch.bool, device="cuda")
+    banned_range[n - n // 10 :] = True  # the newest tenth of the items, as an inductive slice bans a range
+    shapes = {
+        "eval, exclusions 64": (n, 64, None),
+        "eval, exclusions 256": (n, 256, None),
+        "eval, exclusions 1024": (n, 1024, None),
+        "eval, exclusions 64, banned tenth": (n, 64, banned_range),
+        "Amazon-Book items, exclusions 256": (AMAZON_BOOK_ITEMS, 256, None),
+    }
+    for what, (n_items, width, banned) in shapes.items():
+        scores, k = topk_scores(rng, TEST_BATCH, n_items), 100
+        ex = topk_exclusions(rng, TEST_BATCH, n_items, width)
+        row = {"rows": TEST_BATCH, "n_items": n_items, "k": k, "exclusion_width": width, "banned": banned is not None,
+               **check_masked_topk(what, scores, k, ex, banned)}
+
+        def kernel():
+            return topk_ops.masked_topk_cuda(scores, k, ex, banned)
+
+        def plain():
+            return torch.topk(topk_ops.mask_scores(scores, ex, banned), k, dim=1)
+
+        kernel()
+        torch.cuda.synchronize()
+        before = topk_ops.masked_topk_cuda.launches
+        torch.cuda.set_sync_debug_mode("error")  # any synchronising call raises
+        try:
+            for _ in range(3):
+                topk_ops.masked_topk(scores, k, ex, banned)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row["launches_per_call"] = (topk_ops.masked_topk_cuda.launches - before) / 3
+        if row["launches_per_call"] != 1 + (topk_ops.n_chunks(n_items) > 1):
+            raise AssertionError(f"{what}: {row['launches_per_call']} launches a call counted")
+        for key, fn in (("host_us", lambda: topk_ops.masked_topk(scores, k, ex, banned)), ("plain_host_us", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(40):  # the enqueue alone: 40 calls queue without waiting for the device
+                fn()
+            row[key] = (time.perf_counter() - t0) / 40 * 1e6
+            torch.cuda.synchronize()
+        row["ms"], row["plain_ms"] = median_ms(kernel), median_ms(plain)
+        row["ms_windowed"], row["plain_ms_windowed"] = windowed_ms(kernel, plain)
+        n_bytes = (scores.numel() * 4 + ex.numel() * 4 + (n_items if banned is not None else 0)
+                   + TEST_BATCH * k * 12)
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 0.0)
+        row["kernel_device_ms"] = kernel_device_ms(kernel, kernels=TOPK_KERNEL_NAMES)
+        row["device_ms_and_launches"] = device_ms_per_call(kernel)
+        row["plain_device_ms_and_launches"] = device_ms_per_call(plain)
+        row["clocks_after"] = card_clocks()
+        log(f"masked top-k, {what} ({TEST_BATCH} x {n_items}, k {k}) on {card}: {row['launches_per_call']:g} "
+            f"launches a call, no synchronisation; host enqueue {row['host_us']:.1f} us a call (plain "
+            f"{row['plain_host_us']:.1f}); single calls: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms; windows of 10: kernel {row['ms_windowed']:.4f} ms, plain "
+            f"{row['plain_ms_windowed']:.4f} ms; device ms a launch {row['kernel_device_ms']}, a call (ms, launches) "
+            f"{row['device_ms_and_launches']}; plain {row['plain_device_ms_and_launches']}; bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}); {row['ids_differing_from_plain_at_ties']} ids differ "
+            f"from the plain path's at ties; then {row['clocks_after']}")
+        rows[what] = row
     return rows
 
 
@@ -3288,6 +3442,10 @@ def main():
     log(f"metric-sums kernel launches an evaluate on the grown set: {sums_per_pass:g} (two a batch)")
     if sums_per_pass == 0 or sums_per_pass % 2:
         raise AssertionError(f"evaluate: {sums_per_pass} metric-sums launches a pass")
+    topk_per_pass = topk_ops.masked_topk_cuda.launches / 3
+    log(f"masked top-k kernel launches an evaluate on the grown set: {topk_per_pass:g} (one a batch)")
+    if topk_per_pass != sums_per_pass / 2:
+        raise AssertionError(f"evaluate: {topk_per_pass} masked top-k launches a pass, not one a batch")
     log(
         f"times on {card}: get_rep {get_rep_ms:.3f} ms (median of 20 single calls; {get_rep_windowed_ms:.3f} ms "
         f"in windows of 10 calls), {ds.n_users} users x {ds.n_items} items; "
@@ -3307,6 +3465,7 @@ def main():
             log(f"  {ms:9.3f} ms {n:5d}x  {name[:100]}")
 
     metric_rows = metric_sums_phase(card, rng)
+    topk_rows = masked_topk_phase(card, rng)
 
     # 7. train, on a fresh model of the Gowalla-scale set: the kernel's
     # training uses at its layouts, then IGCNTrainer
@@ -3577,6 +3736,16 @@ def main():
         "calls, *_ms_windowed: median of windows of 10 back-to-back calls",
         "detail": list(metric_rows.values()),
     }
+    topk_entry = {
+        "name": "masked_topk",
+        "route": "cuda",
+        "source": "inductive_recommendation_tpu_torch/ops/csrc/masked_topk.cu",
+        "replaces": "none (inductive_recommendation_tpu/ops/topk.py::masked_topk, a scatter and lax.top_k)",
+        "launches_per_evaluate": topk_per_pass,
+        "per": f"one batch of {TEST_BATCH} rows, top 100; *_ms: median of single calls, *_ms_windowed: median of "
+        "windows of 10 back-to-back calls, host_us: the host's enqueue of a call",
+        "detail": list(topk_rows.values()),
+    }
     sampler_entry = {
         "name": "bpr_sample",
         "route": "cuda",
@@ -3587,7 +3756,8 @@ def main():
         "detail": list(sampler_rows.values()),
     }
     print(json.dumps({"kernels": [kernel, transpose, dropout, view, *zoo_entries, *last_entries, *att_entries,
-                                  *shard_entries, *family_entries, metric_entry, sampler_entry]}))
+                                  *shard_entries, *family_entries, metric_entry, topk_entry,
+                                  sampler_entry]}))
     print(
         json.dumps(
             {

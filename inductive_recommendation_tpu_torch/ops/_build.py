@@ -44,6 +44,9 @@ SIGNATURES = {
     "bpr_sample": [
         ("bpr_sample", [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _I, _I, _P]),
     ],
+    "masked_topk": [
+        ("masked_topk", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    ],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

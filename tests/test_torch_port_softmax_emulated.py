@@ -56,11 +56,14 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct U3 { unsigned x, y, z; };
-inline thread_local U3 threadIdx, blockIdx;
+inline thread_local U3 threadIdx, blockIdx, gridDim;
 template <class T> T __ldg(const T* p) { return *p; }
+#define __host__
 namespace emu {
 struct Warp { pthread_barrier_t bar; uint64_t slot[32]; };
-inline Warp* W;
+inline thread_local Warp* W;
+inline pthread_barrier_t* block_bar;  // LaunchBlock's barrier of every thread of the block
+inline unsigned char* dyn_smem;       // LaunchBlock's dynamic shared memory
 inline int lane() { return threadIdx.x & 31; }
 inline void sync() { pthread_barrier_wait(&W->bar); }
 template <class T> T xchg(T v, int src) {
@@ -82,13 +85,49 @@ template <class K> auto Launch(K k, dim3 grid, dim3 block, int = 0, void* = null
         for (unsigned w = 0; w < block.x / 32; ++w) {
           Warp warp;
           pthread_barrier_init(&warp.bar, nullptr, 32);
-          W = &warp;
           std::vector<std::thread> ts;
           for (unsigned l = 0; l < 32; ++l)
-            ts.emplace_back([=] { threadIdx = {w * 32 + l, 0, 0}; blockIdx = {bx, by, bz}; k(a...); });
+            ts.emplace_back([=, &warp] {
+              W = &warp;
+              threadIdx = {w * 32 + l, 0, 0};
+              blockIdx = {bx, by, bz};
+              gridDim = {grid.x, grid.y, grid.z};
+              k(a...);
+            });
           for (auto& t : ts) t.join();
           pthread_barrier_destroy(&warp.bar);
         }
+  };
+}
+// a launch of a kernel that meets at __syncthreads: every block in turn, all
+// the block's threads at once (each warp still meeting at its shuffles), with
+// `smem` bytes of dynamic shared memory
+template <class K> auto LaunchBlock(K k, dim3 grid, dim3 block, size_t smem = 0, void* = nullptr) {
+  return [=](auto... a) {
+    const unsigned n_warps = block.x / 32;
+    for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::vector<uint64_t> mem((smem + 7) / 8 + 2);
+        dyn_smem = reinterpret_cast<unsigned char*>(mem.data() + (reinterpret_cast<uintptr_t>(mem.data()) & 8 ? 1 : 0));
+        pthread_barrier_t bar;
+        pthread_barrier_init(&bar, nullptr, block.x);
+        block_bar = &bar;
+        std::vector<Warp> warps(n_warps);
+        for (auto& wp : warps) pthread_barrier_init(&wp.bar, nullptr, 32);
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < block.x; ++t)
+          ts.emplace_back([=, &warps] {
+            W = &warps[t / 32];
+            threadIdx = {t, 0, 0};
+            blockIdx = {bx, by, bz};
+            gridDim = {grid.x, grid.y, grid.z};
+            k(a...);
+          });
+        for (auto& t : ts) t.join();
+        for (auto& wp : warps) pthread_barrier_destroy(&wp.bar);
+        pthread_barrier_destroy(&bar);
+      }
   };
 }
 }  // namespace emu
@@ -112,6 +151,11 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline void __syncwarp() { emu::sync(); }
+inline void __syncthreads() { pthread_barrier_wait(emu::block_bar); }
+template <class T> T atomicAdd(T* p, T v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicOr(unsigned* p, unsigned v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
 inline float __expf(float x) { return std::exp(x); }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 typedef struct CUstream_st* cudaStream_t;
@@ -122,12 +166,16 @@ inline cudaError_t cudaPeekAtLastError() { return 0; }
 """
 
 
-def _host_source(src: str) -> str:
+def _host_source(src: str, launch: str = "emu::Launch") -> str:
     """The .cu's text for the host: the shim for the runtime header, each
     ``kernel<<<grid, block, ...>>>(args)`` as ``emu::Launch(kernel, grid,
-    block, ...)(args)``, the cp.async copies as plain copies."""
+    block, ...)(args)`` (``launch="emu::LaunchBlock"`` for kernels that meet
+    at ``__syncthreads``), dynamic shared memory as the launch's buffer, the
+    cp.async copies as plain copies."""
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_shim.h"')
-    src = re.sub(r"([\w:]+(?:<[^<>]*>)?)<<<(.*?)>>>\(", r"emu::Launch(\1, \2)(", src)
+    src = re.sub(r"([\w:]+(?:<[^<>]*>)?)<<<(.*?)>>>\(", launch + r"(\1, \2)(", src)
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu::dyn_smem);", src)
     src = re.sub(r'asm volatile\("cp\.async\.ca\.shared\.global[^\n]*\);',
                  "*reinterpret_cast<int*>(smem_ptr) = *reinterpret_cast<const int*>(gptr);", src)
     src = re.sub(r'asm volatile\("cp\.async\.cg\.shared\.global[^\n]*\);', "std::memcpy(smem_ptr, gptr, 16);", src)

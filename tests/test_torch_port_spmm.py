@@ -163,3 +163,29 @@ def test_masked_topk_matches_jax():
     jvals, jidx = jax_masked_topk(jnp.asarray(scores), 10, jnp.asarray(excl), jnp.asarray(banned))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+
+
+def test_masked_topk_plain_path_with_ties_and_a_ban_matches_jax():
+    """The plain path (CPU tensors) where scores tie, also at the k-th place:
+    the values equal JAX's, each id scores its value, the ids above the k-th
+    value are JAX's as a set, and the rest are distinct ids of the k-th value
+    (``torch.topk`` on the CPU does not promise JAX's lower-index-first order
+    among ties)."""
+    rng = np.random.default_rng(11)
+    n_items, k = 60, 12
+    scores = np.round(rng.normal(0.0, 1.0, (16, n_items)), 0).astype(np.float32)  # a few levels
+    excl = np.full((16, 8), n_items, dtype=np.int32)
+    for r in range(16):
+        excl[r, : r % 8] = rng.choice(n_items, size=r % 8, replace=False)
+    banned = rng.random(n_items) < 0.25
+    vals, idx = masked_topk(torch.as_tensor(scores), k, torch.as_tensor(excl), torch.as_tensor(banned))
+    jvals, jidx = jax_masked_topk(jnp.asarray(scores), k, jnp.asarray(excl), jnp.asarray(banned))
+    jvals, jidx = np.asarray(jvals), np.asarray(jidx)
+    np.testing.assert_array_equal(vals.numpy(), jvals)
+    masked = np.asarray(jax_mask_scores(jnp.asarray(scores), jnp.asarray(excl), jnp.asarray(banned)))
+    above = jvals > jvals[:, -1:]
+    for row, want, sel in zip(idx.numpy(), jidx, above):
+        assert set(row[sel].tolist()) == set(want[sel].tolist())
+    np.testing.assert_array_equal(np.take_along_axis(masked, idx.numpy(), 1), jvals)
+    assert all(len(set(row)) == k for row in idx.numpy().tolist())
+    assert (jvals[:, -1:] == jvals[:, -2:-1]).any(), "the case has ties at the k-th place"
