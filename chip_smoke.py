@@ -73,7 +73,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    model's, and the reloaded best checkpoint has alpha = 0.99^k and the same
    metrics; the run draws 2 batches a step through the sampler's kernel
    (``STEP_DRAWS``). (c) One step is 16 launches (8 products) and those 2
-   draws. (d) Step time (single
+   draws: the eager step after the reload, the captured one and a replay,
+   each counted alone. (d) Step time (single
    steps and windows of 10), examples/s, epoch seconds, and one step under
    ``torch.profiler``;
 8. DOSE: the grid's DOSE_aug (d 64, 3 layers, dropout 0.3, aug_num 500,000)
@@ -116,7 +117,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
    in one step (``STEP_DRAWS``: MultiVAE 0, the others 1), step ms (single and windowed), examples/s, one profiled
    step, epoch s, ``evaluate`` ms and users/s;
 10. the last four models on the same set, one epoch each, with the checks,
-   counts and times of phase 9 (b) (``STEP_LAUNCHES``). (a) AttIGCN at
+   counts and times of phase 9 (b) (``STEP_LAUNCHES``; AttIGCN's step
+   counted as an eager, a captured and a replayed one). (a) AttIGCN at
    IGCN's grid width (4 heads) with the IGCN row's trainer: the attention
    kernels of ``ops/csrc/attention_csr.cu`` on small edge cases (runs of
    empty rows, rows cut across many chunks, the 12,745-edge row, rows cut
@@ -233,6 +235,18 @@ Phases, each of which raises on failure (the exit code is then not 0):
    are the single-device trainer's bit for bit where the shard's CSR is the
    whole attention layout (world 1), else within 6e-8, and its edge run
    launches every softmax pass on the ``edge_shard_attention`` route.
+14. the training step replayed as one CUDA graph (``train/step_graph.py``)
+   against the same steps run eagerly: IGCN, DOSE_aug and AttIGCN (4 heads)
+   at their grid widths on the Gowalla-scale set, and IMF and every other
+   DOSE variant on a 3,000 x 4,000 set of 40,000 interactions (batch 256),
+   each trained twice for an epoch and a half from its seed (an anneal and
+   a view rebuild inside), once replayed and once with its graph taken
+   away: the step losses and the parameters equal bit for bit, the launches
+   by route and the sampler's draws equal, the peak device memory of each;
+   for the first three, the step's time both ways (median of single steps
+   and of windows of 10) and one profiled step each, in which the profiler
+   must record as many ``spmm_chunk_kernel`` launches for the replay as for
+   the eager step.
 
 The counts of kernel launches are set to 0 just before phases 4-5 drive the
 serving path and read just after, and again around the training runs of
@@ -247,6 +261,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -374,6 +389,16 @@ STEP_DRAWS = {
     "MF": 1, "NGCF": 1, "IMCGAE": 1, "IDCF_LGCN": 1, "NeuMF": 1, "SGL": 1, "HALF": 1,
     "MultiVAE": 0,
 }
+# phase 14: the training step replayed as one CUDA graph against the same
+# steps run eagerly, from the same weights, batches and seeds: an epoch and
+# a half (an epoch end inside) of each train cell's model on the
+# Gowalla-scale set, and of the IGCN family's other models on a small set
+GRAPH_MODELS = (("IGCN", IGCN_CONFIG, TRAINER_CONFIG), ("DOSE_aug", DOSE_CONFIG, DOSE_TRAINER_CONFIG),
+                ("AttIGCN", ATT_CONFIG, TRAINER_CONFIG))
+GRAPH_FAMILY = ("IMF", "DOSE_aug2", "DOSE_aug3", "DOSE_aug4", "DOSE_drop", "DOSE_drop2", "DOSE_drop3", "TEST",
+                "TEST2", "DOSE_aug_drop", "DOSE_aug_drop2", "DOSE_aug_drop3", "DOSE_test")
+GRAPH_SMALL_SET = (3000, 4000, 40_000)  # users, items, interactions
+GRAPH_SMALL_BATCH = 256
 # phase 11: a raw Gowalla file at the published SNAP loc-Gowalla totals,
 # preprocessed and run by the command line (the grid's IGCN row, index 2, its
 # relative dataset path, the CLI's default seed), with the native routines
@@ -1063,18 +1088,22 @@ def train_and_check(trainer, card, n_products) -> dict:
     )
     os.remove(trainer.save_path)
 
-    # (c) one step: every sparse product of the forward and the backward
-    reset_launch_counts()
-    trainer.step()
-    torch.cuda.synchronize()
-    per_step = dict(spmm_csr_cuda.route_launches)
-    if spmm_csr_cuda.launches != 2 * n_products or per_step["transpose"] != 0:
-        raise AssertionError(f"one step launched {spmm_csr_cuda.launches} ({per_step}), expected {2 * n_products}")
-    if sampling.sample_bpr_batch_cuda.launches != step_draws:
-        raise AssertionError(f"one step drew {sampling.sample_bpr_batch_cuda.launches} batches through the sampler's "
-                             f"kernel, expected {step_draws}")
-    log(f"one step: {spmm_csr_cuda.launches} launches for {n_products} products: {per_step}; "
-        f"{step_draws} through the sampler's kernel")
+    # (c) one step: every sparse product of the forward and the backward;
+    # three steps after the reload, each counted alone: the eager warm-up,
+    # the captured step and a replay of its graph
+    for kind in ("eager", "captured", "replayed"):
+        reset_launch_counts()
+        trainer.step()
+        torch.cuda.synchronize()
+        per_step = dict(spmm_csr_cuda.route_launches)
+        if spmm_csr_cuda.launches != 2 * n_products or per_step["transpose"] != 0:
+            raise AssertionError(f"one {kind} step launched {spmm_csr_cuda.launches} ({per_step}), expected "
+                                 f"{2 * n_products}")
+        if sampling.sample_bpr_batch_cuda.launches != step_draws:
+            raise AssertionError(f"one {kind} step drew {sampling.sample_bpr_batch_cuda.launches} batches through "
+                                 f"the sampler's kernel, expected {step_draws}")
+    log(f"one step (eager, captured and replayed alike): {spmm_csr_cuda.launches} launches for {n_products} "
+        f"products: {per_step}; {step_draws} through the sampler's kernel")
 
     # (d) times
     step_ms = median_ms(trainer.step, reps=30)
@@ -1298,15 +1327,18 @@ def zoo_model_run(name, trainer, ds, ev, card, examples_per_step, run=None, keep
     def step():
         return trainer.step(*batch)
 
-    reset_launch_counts()
-    step()
-    torch.cuda.synchronize()
-    per_step = {k: v for k, v in launches_by_route().items() if v}
-    if per_step != expected:
-        raise AssertionError(f"{name}: one step launched {per_step}, expected {expected}")
-    if sampling.sample_bpr_batch_cuda.launches != step_draws:
-        raise AssertionError(f"{name}: one step drew {sampling.sample_bpr_batch_cuda.launches} batches through the "
-                             f"sampler's kernel, expected {step_draws}")
+    # after the epoch end: an eager step, and where the trainer replays its
+    # step, the captured one and a replay, each counted alone
+    for kind in ("eager", "captured", "replayed") if trainer.step_graph is not None else ("eager",):
+        reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in launches_by_route().items() if v}
+        if per_step != expected:
+            raise AssertionError(f"{name}: one {kind} step launched {per_step}, expected {expected}")
+        if sampling.sample_bpr_batch_cuda.launches != step_draws:
+            raise AssertionError(f"{name}: one {kind} step drew {sampling.sample_bpr_batch_cuda.launches} batches "
+                                 f"through the sampler's kernel, expected {step_draws}")
     step_ms = median_ms(step, reps=30)
     (step_windowed_ms,) = windowed_ms(step)
     out = {
@@ -2257,6 +2289,107 @@ def check_attention_kernels(model, params, rng) -> dict:
     return rows
 
 
+def graph_side(name, model_cfg, trainer_cfg, ds, graph) -> tuple:
+    """An epoch and a half of a fresh trainer of the named model, its step
+    replayed as a CUDA graph (``graph``) or run eagerly: (the trainer, its
+    step losses, its parameters, its launches by route, its sampler draws,
+    the peak device memory, the run's seconds)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = get_trainer(trainer_cfg, ds, get_model(model_cfg, ds))
+    if graph and trainer.step_graph is None:
+        raise AssertionError(f"{name}: the single-device trainer on the card does not replay its step")
+    if not graph:
+        trainer.step_graph = None
+    losses, real = [], trainer.step
+
+    def step(*batch):
+        losses.append(real(*batch))
+        return losses[-1]
+
+    trainer.step = step
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_one_epoch()
+    for _ in range(trainer.steps_per_epoch // 2):
+        trainer.step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trainer.step = real
+    return (trainer, torch.stack(losses).cpu(), {k: p.detach().cpu() for k, p in trainer.params.items()},
+            {k: v for k, v in launches_by_route().items() if v}, sampling.sample_bpr_batch_cuda.launches,
+            torch.cuda.max_memory_allocated(), seconds)
+
+
+def graph_against_eager(name, model_cfg, trainer_cfg, ds, timed) -> dict:
+    """Phase 14 for one model: the graph run and the eager run (``graph_side``)
+    equal bit for bit, losses and parameters, with the same launches and
+    draws; with ``timed``, both trainers' step times after the run and one
+    profiled step each, whose kernels the profiler must record alike."""
+    out, runs = {}, {}
+    for side in ("eager", "graph"):
+        trainer, *runs[side] = graph_side(name, model_cfg, trainer_cfg, ds, side == "graph")
+        losses, _, launches, draws, peak, seconds = runs[side]
+        out[side] = {"steps": len(losses), "seconds": seconds, "peak_bytes": peak, "launches": launches,
+                     "draws": draws}
+        if timed:
+            out[side]["step_ms"] = median_ms(trainer.step, reps=30)
+            (out[side]["step_ms_windowed"],) = windowed_ms(trainer.step)
+            b = device_breakdown(trainer.step, top=4)
+            if b is None:
+                raise AssertionError(f"{name} {side}: the profiler recorded no device activity in a step")
+            out[side]["profiled_step"] = {"host_ms": b[0], "device_busy_ms": b[1], "device_launches": b[3],
+                                          "spmm_chunk_kernels": sum(n for k, _, n in b[2] if "spmm_chunk_kernel" in k)}
+        del trainer
+    (le, pe, *_), (lg, pg, *_) = runs["eager"], runs["graph"]
+    if lg.shape != le.shape or not torch.equal(lg, le):
+        bad = int(torch.nonzero(lg != le)[0]) if lg.shape == le.shape else None
+        raise AssertionError(f"{name}: the graph run's step losses differ from the eager run's (first at step {bad}; "
+                             f"max {float((lg - le).abs().max()) if bad is not None else 'shapes differ'})")
+    for k in pe:
+        if not torch.equal(pg[k], pe[k]):
+            raise AssertionError(f"{name}: parameter {k} after the graph run differs from the eager run's by "
+                                 f"{float((pg[k] - pe[k]).abs().max()):.3g}")
+    for key in ("launches", "draws"):
+        if out["graph"][key] != out["eager"][key]:
+            raise AssertionError(f"{name}: {key} {out['graph'][key]} in the graph run, {out['eager'][key]} eager")
+    if timed:
+        ke, kg = (out[s]["profiled_step"]["spmm_chunk_kernels"] for s in ("eager", "graph"))
+        if kg != ke or kg == 0:
+            raise AssertionError(f"{name}: the profiler recorded {kg} spmm_chunk_kernel launches in a replayed step, "
+                                 f"{ke} in an eager one")
+    log(f"{name}: graph and eager runs equal bit for bit over {len(lg)} steps (an epoch end inside); launches "
+        f"{out['graph']['launches']}; peak memory graph {out['graph']['peak_bytes'] / 2**30:.3f} GiB, eager "
+        f"{out['eager']['peak_bytes'] / 2**30:.3f} GiB; run s graph {out['graph']['seconds']:.3f}, eager "
+        f"{out['eager']['seconds']:.3f}"
+        + ("" if not timed else "; step ms graph {:.3f} / {:.3f} windowed, eager {:.3f} / {:.3f}; profiled step: "
+           "graph {}, eager {}".format(out["graph"]["step_ms"], out["graph"]["step_ms_windowed"],
+                                       out["eager"]["step_ms"], out["eager"]["step_ms_windowed"],
+                                       out["graph"]["profiled_step"], out["eager"]["profiled_step"])))
+    return out
+
+
+def graph_step_phase(card, ds=None) -> dict:
+    """Phase 14: the training step replayed as a CUDA graph against the
+    eager step (``graph_against_eager``): IGCN, DOSE_aug and AttIGCN on the
+    Gowalla-scale set, timed and profiled; the IGCN family's other models
+    on a small set."""
+    ds = ds or quick_synthetic_dataset(N_USERS, N_ITEMS, N_INTER, seed=SEED)
+    out = {"card": card}
+    for name, model_cfg, trainer_cfg in GRAPH_MODELS:
+        out[name] = graph_against_eager(name, model_cfg, trainer_cfg, ds, timed=True)
+    small = quick_synthetic_dataset(*GRAPH_SMALL_SET, seed=SEED)
+    for name in GRAPH_FAMILY:
+        trainer_name = {"IMF": "IGCNTrainer", "DOSE_test": "DOSEtestTrainer"}.get(name, "DOSEaugTrainer")
+        model_cfg = dict(IGCN_CONFIG, name=name, aug_num=2_000, aug_rate=0.5, pai=0.6)
+        trainer_cfg = dict(DOSE_TRAINER_CONFIG, name=trainer_name, batch_size=GRAPH_SMALL_BATCH)
+        out[name] = graph_against_eager(name, model_cfg, trainer_cfg, small, timed=False)
+    return out
+
+
 @contextlib.contextmanager
 def plain_attention():
     """AttIGCN's attention as the plain torch ops (autograd through the
@@ -2704,9 +2837,11 @@ def front_door_phase(card, per_step, rng, work) -> dict:
     chunks = [e for e in events if e.get("cat") == "kernel" and "spmm_chunk_kernel" in e.get("name", "")]
     if not chunks:
         raise AssertionError("the trace holds no spmm_chunk_kernel launch (spmm_csr_chunks)")
-    spans = sum(e.get("name") == "irt.train.step" for e in events)
+    # the host's ranges: around a captured step the profiler may add a
+    # gpu_user_annotation of the same name for the graph's kernels
+    spans = sum(e.get("name") == "irt.train.step" and e.get("cat") == "user_annotation" for e in events)
     if spans != TRACE_STEPS:
-        raise AssertionError(f"the trace holds {spans} irt.train.step spans for {TRACE_STEPS} steps")
+        raise AssertionError(f"the trace holds {spans} irt.train.step host spans for {TRACE_STEPS} steps")
     out["trace"] = {"steps": TRACE_STEPS, "spmm_chunk_kernel_events": len(chunks), "kernel_events":
                     sum(e.get("cat") == "kernel" for e in events),
                     "step_p50_ms": statistics.median(step_s) * 1e3}
@@ -3684,6 +3819,9 @@ def main():
                 dist.destroy_process_group()
     log("mesh: " + json.dumps(mesh))
     log("families: " + json.dumps(families))
+
+    # 14. the training step replayed as a CUDA graph against the eager step
+    log("graph step: " + json.dumps(graph_step_phase(card, ds)))
     max_err = max(max_err, mesh["shard_max_abs_err"], shard_fwd["max_abs_err"], shard_t["max_abs_err"])
     mroutes, mstep = mesh["train"]["route_launches_run"], mesh["train"]["launches_per_step"]
     shard_entries = [

@@ -34,10 +34,18 @@ class BasicModel(nn.Module):
     (reference model.py:35-53). ``trainable`` is False for the eval-only
     baselines (ItemKNN, Popularity), which ``BasicTrainer.train`` only
     validates. ``graph_propagation`` is True for the models whose forward
-    pass propagates over the whole graph, the ones edge mode shards."""
+    pass propagates over the whole graph, the ones edge mode shards.
+    ``graph_step`` is True for the models whose training step a trainer on
+    one CUDA device replays as one CUDA graph (``train/step_graph.py``): the
+    forward draws nothing on the host but its dropout seeds
+    (``ops.csr_spmm.dropout_seed``) and rebinds no attribute of the model,
+    and its step has been held bit for bit to the eager one on the card.
+    The others stay eager, among them NGCF, whose message masks come from a
+    CUDA generator seeded from the host (``ops.dropout.device_generator``)."""
 
     trainable = True
     graph_propagation = False
+    graph_step = False
     #: where the forward passes run (``placed`` swaps it for a block)
     placement = LOCAL
 

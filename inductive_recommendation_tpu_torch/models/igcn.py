@@ -50,6 +50,8 @@ def select_core(dataset, feature_ratio, ranking_metric):
 
 class IGCN(BasicModel):
     graph_propagation = True
+    # the family's steps (IMF, AttIGCN, DOSE) replay as a CUDA graph
+    graph_step = True
 
     def __init__(self, model_config, dataset, device):
         super().__init__(model_config, dataset, device)

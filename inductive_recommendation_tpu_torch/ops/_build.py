@@ -29,7 +29,7 @@ NVCC_FLAGS = [
 _P, _I, _I64, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64, ctypes.c_float
 SIGNATURES = {
     "spmm_csr": [
-        ("spmm_csr_chunks", [_P, _P, _P, _P, _U64, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        ("spmm_csr_chunks", [_P, _P, _P, _P, _U64, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
         ("spmm_csr_carries", [_P, _P, _P, _P, _I, _I, _I, _P]),
     ],
     "attention_csr": [

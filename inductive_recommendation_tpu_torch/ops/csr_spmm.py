@@ -26,6 +26,11 @@ draw of the edge id, so the forward and the transpose drop the same edges
 (JAX ``bucketed_spmm.py:254-275,330-370``; its threefry bits differ). The
 kernel draws u in its first launch; :func:`edge_uniform` computes the same
 bits with torch integer ops on any device.
+
+A seed is a host integer, or, while a training step is captured in a CUDA
+graph, an entry of the step's :class:`SeedTable` on the card, which the
+kernel reads when it runs: the host rewrites the table before each replay,
+so every replay drops its own edges.
 """
 
 from __future__ import annotations
@@ -212,7 +217,10 @@ def edge_uniform(seed: int, eid: torch.Tensor) -> torch.Tensor:
 
 
 def _check_dropout(seed, p):
-    if not 0 <= seed < 2**64:
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise TypeError(f"a seed on the device is one int64 entry, got {seed.dtype} {tuple(seed.shape)}")
+    elif not 0 <= seed < 2**64:
         raise ValueError(f"seed {seed} is not a 64-bit unsigned integer")
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout p {p} is not in [0, 1)")
@@ -232,9 +240,31 @@ def spmm_csr_dropout_reference(mat: CsrSpMM, x: torch.Tensor, seed: int, p: floa
     return spmm_csr_reference(mat.row_ptr, mat.col, dropout_values(mat.val, mat.eid, seed, p), x)
 
 
-def dropout_seed(generator: torch.Generator | None = None) -> int:
+class SeedTable:
+    """The dropout seeds of a training step captured in a CUDA graph: int64
+    ``values`` [capacity] on the step's device. While the step is captured
+    the forward gets the table in its host generator's place, and
+    :func:`dropout_seed` hands out its entries in order, 0-dim views whose
+    values the kernels read when they run; before every replay the host
+    writes that step's draws into them (``train/step_graph.py``)."""
+
+    def __init__(self, capacity: int, device):
+        self.values = torch.zeros(capacity, dtype=torch.int64, device=device)
+        self.taken = 0
+
+    def take(self) -> torch.Tensor:
+        if self.taken == self.values.shape[0]:
+            raise RuntimeError(f"the step draws more than {self.taken} dropout seeds, its table's size")
+        self.taken += 1
+        return self.values[self.taken - 1]
+
+
+def dropout_seed(generator: torch.Generator | SeedTable | None = None) -> int | torch.Tensor:
     """A dropout seed drawn from a CPU ``generator`` (torch's default one when
-    None): a host draw, so a training step does not wait for the card."""
+    None): a host draw, so a training step does not wait for the card. From
+    a :class:`SeedTable`, its next entry, with nothing drawn."""
+    if isinstance(generator, SeedTable):
+        return generator.take()
     return int(torch.randint(0, 2**62, (), generator=generator))
 
 
@@ -249,7 +279,8 @@ def n_chunks(nnz: int) -> int:
 def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None, drop=None) -> torch.Tensor:
     """Launch ``csrc/spmm_csr.cu`` on the current stream: out = A @ x, with
     ``val`` (default ``mat.val``) as A's edge values and, when ``drop`` =
-    ``(seed, p)``, the edge dropout drawn in the kernel from ``mat.eid``.
+    ``(seed, p)``, the edge dropout drawn in the kernel from ``mat.eid``
+    (a seed on the device is read by the kernel from its address).
     Records no autograd: :func:`spmm_csr` and :func:`spmm_csr_dropout` do.
 
     A product is two launches when the edges span more than one chunk of
@@ -291,13 +322,18 @@ def spmm_csr_cuda(mat: CsrSpMM, x: torch.Tensor, val: torch.Tensor | None = None
         carry = torch.empty(chunks, 2, d, dtype=torch.float32, device=x.device)
         cut_row = torch.empty(chunks, dtype=torch.int32, device=x.device)
     seed, p = (0, 0.0) if drop is None else drop
+    seed_ptr = None
+    if isinstance(seed, torch.Tensor):
+        if seed.device != x.device:
+            raise ValueError(f"the seed is on {seed.device}; the kernel needs it on {x.device}")
+        seed, seed_ptr = 0, seed.data_ptr()
     route = route_key(mat, drop)
     lib = _build.load("spmm_csr")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.spmm_csr_chunks(
             mat.row_ptr.data_ptr(), mat.col.data_ptr(), val.data_ptr(),
-            None if drop is None else mat.eid.data_ptr(), seed, p,
+            None if drop is None else mat.eid.data_ptr(), seed, seed_ptr, p,
             x.data_ptr(), out.data_ptr(),
             None if carry is None else carry.data_ptr(), None if cut_row is None else cut_row.data_ptr(),
             n_rows, nnz, d, chunks, stream,
@@ -376,7 +412,8 @@ def _product(mat: CsrSpMM, x: torch.Tensor, edge_scale=None, drop=None) -> torch
         return spmm_csr_cuda(mat, x.contiguous(), val.contiguous(), drop)
     if x.device.type == "cpu":
         if drop is not None:
-            val = dropout_values(val, mat.eid, *drop)
+            seed, p = drop
+            val = dropout_values(val, mat.eid, int(seed), p)
         return spmm_csr_reference(mat.row_ptr, mat.col, val, x)
     raise ValueError(f"spmm_csr runs on cuda or cpu tensors, not {x.device}")
 
@@ -416,10 +453,11 @@ def spmm_csr(mat: CsrSpMM, x: torch.Tensor, edge_scale: torch.Tensor | None = No
     return _product(mat, x, edge_scale)
 
 
-def spmm_csr_dropout(mat: CsrSpMM, x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+def spmm_csr_dropout(mat: CsrSpMM, x: torch.Tensor, seed: int | torch.Tensor, p: float) -> torch.Tensor:
     """out = (A o M) @ x with M = keep/(1-p), keep = ``edge_uniform(seed,
     eid) >= p``, differentiable in ``x`` (reference ``sparse_dropout``,
-    model.py:4016-4028). Needs a layout built with ``symmetric=False``."""
+    model.py:4016-4028). Needs a layout built with ``symmetric=False``.
+    ``seed``: what :func:`dropout_seed` gave."""
     if mat.symmetric:
         raise ValueError("edge dropout with a shared-symmetric layout is incorrect; build with symmetric=False")
     _check_dropout(seed, p)

@@ -55,13 +55,17 @@
 // so the transpose layout (same eids) drops the same edges in the backward.
 // It is a compile-time variant (kDrop): the serving instantiation is the
 // same code as without it. Launch 2 does not read edges and is unchanged.
-// The training backward runs both launches on the transpose CSR.
+// The training backward runs both launches on the transpose CSR. The seed
+// is a launch argument, or, given seed_ptr, the 64-bit word there, read
+// when the kernel runs: a training step captured in a CUDA graph keeps its
+// seeds in a table on the card that the host rewrites before each replay.
 //
 // Contract (checked by the Python wrapper before the call): every pointer is
 // on the current device, row_ptr/col/eid are int32, val/x/out/carry are fp32
-// and contiguous, eid is null or holds nnz ids in [0, 2^31), 0 <= p < 1, x
-// has d columns, nnz = row_ptr[n_rows] < 2^31, n_chunks =
-// max(1, ceil(nnz / E)) (the wrapper's n_chunks, with EDGES_PER_CHUNK = E),
+// and contiguous, eid is null or holds nnz ids in [0, 2^31), seed_ptr is
+// null or points to 8 bytes on the device, 0 <= p < 1, x has d columns,
+// nnz = row_ptr[n_rows] < 2^31, n_chunks = max(1, ceil(nnz / E)) (the
+// wrapper's n_chunks, with EDGES_PER_CHUNK = E),
 // and carry holds 2 * d floats and cut_row one int32 per chunk when there is
 // more than one chunk. The carry buffer is [chunk][2][d] whatever lane layout
 // either launch takes, so each picks its own. The launches go on the given
@@ -212,7 +216,8 @@ template <int G, int VW, bool kDrop>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 spmm_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
                   const float* __restrict__ val, const int* __restrict__ eid,
-                  unsigned long long seed, float p, const float* __restrict__ x,
+                  unsigned long long seed, const unsigned long long* __restrict__ seed_ptr, float p,
+                  const float* __restrict__ x,
                   float* __restrict__ out, float* __restrict__ carry, int* __restrict__ cut_row,
                   int n_rows, int nnz, int d, int n_chunks) {
   __shared__ int s_cols[kWarpsPerBlock][kEdgesPerChunk];
@@ -243,7 +248,8 @@ spmm_chunk_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
   cp_async_wait_all();
   if constexpr (kDrop) {
     // each lane rewrites the values it staged itself, before the warp syncs
-    const uint32_t k0 = static_cast<uint32_t>(seed), k1 = static_cast<uint32_t>(seed >> 32);
+    const unsigned long long key = seed_ptr ? __ldg(seed_ptr) : seed;
+    const uint32_t k0 = static_cast<uint32_t>(key), k1 = static_cast<uint32_t>(key >> 32);
     for (int i = lane; i < ce - cs; i += 32) {
       const uint32_t bits = philox_word0(static_cast<uint32_t>(s_eids[warp][i]), k0, k1);
       const float u = static_cast<float>(bits >> 8) * 5.9604644775390625e-8f;  // 2^-24
@@ -331,10 +337,12 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // Launch 1: every row with all its edges in one chunk, and the carries of the
-// others; with edge dropout when eid is not null.
+// others; with edge dropout when eid is not null, keyed by *seed_ptr when
+// that is not null, else by seed.
 extern "C" int spmm_csr_chunks(const void* row_ptr, const void* col, const void* val, const void* eid,
-                               unsigned long long seed, float p, const void* x, void* out, void* carry,
-                               void* cut_row, int n_rows, int nnz, int d, int n_chunks, void* stream) {
+                               unsigned long long seed, const void* seed_ptr, float p, const void* x, void* out,
+                               void* carry, void* cut_row, int n_rows, int nnz, int d, int n_chunks,
+                               void* stream) {
   if (n_rows > 0 && d > 0) {
     const bool vec = d % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(carry);
     with_layout(d, vec, [&](auto g, auto vw) {
@@ -343,7 +351,8 @@ extern "C" int spmm_csr_chunks(const void* row_ptr, const void* col, const void*
       auto kernel = eid ? spmm_chunk_kernel<G, VW, true> : spmm_chunk_kernel<G, VW, false>;
       kernel<<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int*>(row_ptr), static_cast<const int*>(col), static_cast<const float*>(val),
-          static_cast<const int*>(eid), seed, p, static_cast<const float*>(x), static_cast<float*>(out),
+          static_cast<const int*>(eid), seed, static_cast<const unsigned long long*>(seed_ptr), p,
+          static_cast<const float*>(x), static_cast<float*>(out),
           static_cast<float*>(carry), static_cast<int*>(cut_row), n_rows, nnz, d, n_chunks);
     });
   }

@@ -19,6 +19,13 @@ Adam is ``torch.optim.Adam`` at its defaults (betas 0.9/0.999, eps 1e-8, no
 weight decay): the update of ``optax.adam`` at its defaults, up to fp32
 rounding. SGD is ``torch.optim.SGD(lr)``, ``optax.sgd``'s plain step.
 
+On one CUDA device, for a model whose ``graph_step`` is True (the IGCN
+family), the step's forward and backward replay as one CUDA graph
+(``train/step_graph.py``): the batch and the dropout seeds are drawn
+outside it and the optimizer steps after it; the graph is captured once an
+epoch and dropped at the epoch's start and end and wherever the tensors it
+reads are replaced.
+
 ``train(verbose, writer)`` logs to a duck-typed summary writer (anything with
 ``add_scalar(tag, value, step)``) with the JAX package's tags
 (``{model}_{trainer}/{stage}_{metric}@{k}``, trainer.py:172-182 there). The
@@ -80,6 +87,7 @@ from inductive_recommendation_tpu_torch.parallel.step import (
 )
 from inductive_recommendation_tpu_torch.train.checkpoint import JAX_FORMAT, load_checkpoint, save_checkpoint
 from inductive_recommendation_tpu_torch.train.losses import aux_bpr_rows, bce_losses, bpr_loss, multinomial_ll_loss
+from inductive_recommendation_tpu_torch.train.step_graph import StepGraph, replays
 from inductive_recommendation_tpu_torch.utils.profiling import span
 
 OPTIMIZERS = {"Adam": torch.optim.Adam, "SGD": torch.optim.SGD}
@@ -154,6 +162,9 @@ class BasicTrainer:
             self.params = shard_params(self.params, self.mesh)
         self.optimizer = None
         self.steps_per_epoch = max(1, -(-len(dataset) // self.batch_size))
+        # the step as a replayed CUDA graph, where the device and the model
+        # allow it; None: every step eager
+        self.step_graph = StepGraph(self) if replays(model, self.device, self.mesh) else None
 
     def _placed(self):
         """The block in which the model's forward passes run under this
@@ -204,8 +215,15 @@ class BasicTrainer:
 
     # -- optimizer (trainer.py:44-46) ---------------------------------------
     def initialize_optimizer(self):
+        self._drop_graph()
         opt_cls = OPTIMIZERS[self.config["optimizer"]]
         self.optimizer = opt_cls(list(self.params.values()), lr=self.config["lr"])
+
+    def _drop_graph(self):
+        """Drops the captured step (its graph and the gradients it made):
+        the tensors it reads may be about to change."""
+        if self.step_graph is not None:
+            self.step_graph.drop()
 
     # -- one step ------------------------------------------------------------
     def sample(self):
@@ -234,8 +252,11 @@ class BasicTrainer:
     def step(self, *batch) -> torch.Tensor:
         """One optimizer step on ``batch`` (a freshly sampled one unless
         given); returns the batch loss as a device scalar. On one device its
-        four phases are the spans ``irt.train.sample``, ``forward``,
-        ``backward`` and ``optimizer`` inside ``irt.train.step``."""
+        phases are spans inside ``irt.train.step``: ``irt.train.sample``,
+        ``forward`` and ``backward`` (on a captured step inside
+        ``irt.train.capture``; on a replayed one ``irt.train.replay``, the
+        batch and seed copies and the replay, in their place), then
+        ``optimizer``."""
         if self.mesh is not None:
             if self._mesh_step is None:
                 if self.placement is None:
@@ -248,22 +269,40 @@ class BasicTrainer:
         with span("irt.train.step"):
             with span("irt.train.sample"):
                 batch = batch or self.sample()
-            with span("irt.train.forward"):
-                loss = self.batch_loss(self.params, *batch)
-            with span("irt.train.backward"):
-                self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-            with span("irt.train.optimizer"):
-                self.optimizer.step()
-            return loss.detach()
+            if self.step_graph is not None:
+                return self.step_graph.step(batch)
+            return self.eager_step(batch)
+
+    def eager_step(self, batch) -> torch.Tensor:
+        """One step on ``batch``, op by op."""
+        loss = self.forward_backward(batch)
+        self.optimizer_step()
+        return loss
+
+    def forward_backward(self, batch) -> torch.Tensor:
+        """The loss of ``batch`` and its gradients in the parameters'
+        ``.grad``, run or captured op by op."""
+        with span("irt.train.forward"):
+            loss = self.batch_loss(self.params, *batch)
+        with span("irt.train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        return loss.detach()
+
+    def optimizer_step(self):
+        with span("irt.train.optimizer"):
+            self.optimizer.step()
 
     _prepare_batch = None
 
     def train_one_epoch(self) -> float:
         self._follow_model_dataset()
+        # an epoch captures its own graph, also after one that was cut short
+        self._drop_graph()
         losses = [self.step() for _ in range(self.steps_per_epoch)]
         with span("irt.train.epoch_end"):
             loss = _epoch_mean(losses)
+            self._drop_graph()
             self.epoch_end()
         return loss
 
@@ -285,6 +324,7 @@ class BasicTrainer:
     # -- checkpoint helpers --------------------------------------------------
     @torch.no_grad()
     def _restore_params(self, saved):
+        self._drop_graph()
         if self.placement is not None:
             saved = self.model.edge_params(saved)
         missing = sorted(set(self.params) - set(saved))
@@ -463,6 +503,7 @@ class BasicTrainer:
             self._rebind_dataset(self.model.dataset)
 
     def _rebind_dataset(self, dataset):
+        self._drop_graph()
         self._model_dataset = self.dataset = dataset
         self.steps_per_epoch = max(1, -(-len(dataset) // self.batch_size))
         self.evaluator = Evaluator(

@@ -75,6 +75,35 @@ def test_a_steps_spans_nest_in_order(tmp_path, dataset):
         assert not _inside(spans, phases[0], "irt.ops.spmm")
 
 
+def test_a_graph_steps_spans_show_the_capture_and_the_replays(tmp_path, dataset, monkeypatch):
+    """A step replayed as a CUDA graph (CPU stand-in of
+    ``test_torch_port_step_graph.py``): the warm-up step opens the four
+    phases as an eager one; the captured step opens the forward and the
+    backward inside ``irt.train.capture``, then ``irt.train.replay`` and
+    the optimizer; a replayed step opens ``irt.train.sample``,
+    ``irt.train.replay`` and ``irt.train.optimizer`` (the stand-in's
+    replay runs the step's Python again: its spans inside the replay, which
+    a CUDA graph does not open, are left out)."""
+    import test_torch_port_step_graph as graph_test
+
+    trainer = graph_test.make_trainer(dataset)
+    graph_test.stand_in(monkeypatch)
+    with trace(str(tmp_path / "t")):
+        for _ in range(4):
+            trainer.step()
+    spans = _spans(tmp_path / "t")
+    steps = _named(spans, "irt.train.step")
+    assert len(steps) == 4
+    replays = _named(spans, "irt.train.replay")
+    inner = [[s[0] for s in _inside(spans, step) if s[0].startswith("irt.train.")
+              and not any(s in _inside(spans, r) for r in replays)] for step in steps]
+    assert inner[0] == list(PHASES)
+    assert inner[1] == ["irt.train.sample", "irt.train.capture", *PHASES[1:3], "irt.train.replay", PHASES[3]]
+    assert inner[2] == inner[3] == ["irt.train.sample", "irt.train.replay", PHASES[3]]
+    (capture,) = _named(spans, "irt.train.capture")
+    assert len(_inside(spans, capture, "irt.ops.spmm")) == 6
+
+
 def test_an_epochs_end_is_one_span(tmp_path, dataset):
     trainer = _trainer(dataset)
     trainer.steps_per_epoch = 2
